@@ -1,6 +1,6 @@
-"""Drive the torch port's embed -> vector-commit -> search path on one
-NVIDIA GPU, with every CUDA kernel held against its plain PyTorch
-version.
+"""Drive the torch port's embed -> vector-commit -> search path and its
+dense completion lane on one NVIDIA GPU, with every CUDA kernel held
+against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -13,10 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernels: each kernel against its plain version at the main path's
      shapes (K1 flash attention at B=8 S=2048 and B=32 S=512, bf16 and
      f32; K3 cosine scores and K2 fused top-k over a 1,048,576 x 768
-     f32 lane), with CUDA-event times of the kernel, the plain version
-     and a PyTorch yardstick call the port never makes, beside the
-     bound (the larger of bytes / 3.35 TB/s and FLOPs / the card's
-     peak for the input type);
+     f32 lane; K4 causal prefill attention over a 2048-slot cache at
+     B=8 S=1024, B=1 S=2048, a joiner at pos > 0 and GQA 12/4, bf16
+     and f32, each with queries that see no key), with CUDA-event times
+     of the kernel, the plain version and a PyTorch yardstick call the
+     port never makes, beside the bound (the larger of bytes / 3.35
+     TB/s and FLOPs / the card's peak for the input type);
   4. end to end: a file-backed store with 1,048,576 slots of 768-d
      vectors (~1,000,000 committed through the store's batch commit),
      the embedder at full Nomic-Embed-Text-v1.5 width (bf16, seeded
@@ -25,7 +27,17 @@ Phases (any failure exits non-zero and prints no result line):
      CPU, then k=10 (K2) and k=200 (K3 + stable sort) searches through
      submit_search with a Searcher draining in-process, held against
      the plain top-k on the card;
-  5. launch counts: how often each kernel ran in phase 4.
+  5. completion: the full-width default decoder (DecoderConfig(): 12
+     layers, hidden 768, vocab 32000, bf16, seeded random weights)
+     behind an in-process Completer on a store: one run_once drains 8
+     prompts of 40-900 bytes as one bucket-1024 batched prefill (K4 on
+     every layer) plus decode, then one serial ~1500-byte request lands
+     in bucket 2048; every key must end READY with its completion
+     appended; the batched prefill logits are held against the same
+     weights with flash_min_seq=0 (the plain attention); a profiled
+     warm drain splits the device time by kernel class;
+  6. launch counts: how often each kernel ran in phases 4 (K1-K3) and
+     5 (K4), each counted from 0 just before its lane runs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -33,6 +45,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -53,11 +66,13 @@ REPLACES = {
     "flash_fwd": "libsplinter_tpu/ops/flash_attention.py:45",
     "fused_topk": "libsplinter_tpu/ops/similarity.py:280",
     "cosine_scores": "libsplinter_tpu/ops/similarity.py:44",
+    "causal_fwd": "libsplinter_tpu/ops/flash_attention.py:182",
 }
 SOURCES = {
     "flash_fwd": "libsplinter_tpu_torch/csrc/flash_fwd.cu",
     "fused_topk": "libsplinter_tpu_torch/csrc/fused_topk.cu",
     "cosine_scores": "libsplinter_tpu_torch/csrc/cosine_scores.cu",
+    "causal_fwd": "libsplinter_tpu_torch/csrc/causal_fwd.cu",
 }
 
 LANE_DIM = 768
@@ -192,6 +207,110 @@ def phase_flash(results):
                 f"sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
             results.setdefault("flash_fwd", []).append(rec)
             del q, k, v, got, ref, qt, kt, vt
+            torch.cuda.empty_cache()
+
+
+# K4 cases: (B, S, T, H, KH, pos, starts).  Rows whose start lies past
+# pos + S - 1 are batch-pad rows (prefill_batch gives them start =
+# bucket); a start above pos left-pads the row's first queries.  All
+# of them see no key and must come out as the mean of V over T.
+CAUSAL_CASES = (
+    (8, 1024, 2048, 12, 12, 0, (0, 124, 300, 524, 700, 900, 984, 1024)),
+    (1, 2048, 2048, 12, 12, 0, (248,)),
+    (1, 512, 2048, 12, 12, 528, (740,)),            # join_row at pos > 0
+    (8, 1024, 2048, 12, 4, 0, (0, 10, 200, 333, 512, 800, 1000, 1024)),
+)
+CAUSAL_MAIN = "B=8 S=1024 T=2048 H=12 KH=12 pos=0 bf16"
+
+
+def _causal_shape(b, s, t, h, kh, pos, kind):
+    return f"B={b} S={s} T={t} H={h} KH={kh} pos={pos} {kind}"
+
+
+def _causal_bound(b, s, t, h, kh, d, pos, starts, elt, kind):
+    """The least time for this run's inputs: 4 D FLOPs per (query,
+    visible key) pair, and the bytes of q, out, start, the visible K/V
+    of each (row, kv head) and all T of V where a query sees no key
+    (its output is the mean of V over T)."""
+    pairs, kv_rows = 0, 0
+    for st in starts:
+        st = max(st, 0)
+        vis = [max(0, pos + i - st + 1) for i in range(s)]
+        pairs += sum(vis)
+        rows = max(0, pos + s - st)
+        kv_rows += rows + (t if min(vis) == 0 else rows)
+    flops = 4.0 * d * h * pairs
+    nbytes = (2.0 * b * s * h * d + kv_rows * kh * d) * elt + 4 * b
+    return bound(nbytes, flops, kind)
+
+
+def phase_causal(results):
+    import torch
+    import torch.nn.functional as F
+
+    from libsplinter_tpu_torch.ops.flash_attention import (
+        causal_attention_plain, causal_flash_attention)
+
+    d = 64
+    for b, s, t, h, kh, pos, starts in CAUSAL_CASES:
+        rep = h // kh
+        start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        slots = pos + torch.arange(s, device="cuda")
+        keys = torch.arange(t, device="cuda")
+        visible = ((keys[None, :] <= slots[:, None])[None]
+                   & (keys[None, None, :] >= start[:, None, None]))
+        has_key = visible.any(dim=-1)                    # (B, S)
+        check(bool((~has_key).any()), "K4 case has no keyless query")
+        for dtype, kind in ((torch.bfloat16, "bf16"),
+                            (torch.float32, "f32")):
+            g = torch.Generator(device="cuda").manual_seed(s + t + pos + kh)
+            q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+            kk, vv = (torch.randn(b, t, kh, d, generator=g, device="cuda")
+                      .to(dtype) for _ in range(2))
+            got = causal_flash_attention(q, kk, vv, pos, start)
+            kr, vr = (x.float().repeat_interleave(rep, dim=2)
+                      for x in (kk, vv))
+            ref = causal_attention_plain(q.float(), kr, vr, pos,
+                                         start).to(dtype)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"K4 {kind} B={b} S={s}: non-finite output")
+            err = (got.float() - ref.float()).abs().max().item()
+            atol = F32_ATOL if kind == "f32" else BF16_ATOL
+            check(err <= atol, f"K4 {kind} B={b} S={s} pos={pos} KH={kh}: "
+                  f"max err {err}")
+            mean = vr.mean(dim=1)                        # (B, H, D)
+            empty = ~has_key
+            merr = (got.float() - mean[:, None]).abs()[empty].max().item()
+            check(merr <= atol, f"K4 keyless queries not the mean of V: "
+                  f"{merr}")
+            ms = cuda_ms(lambda: causal_flash_attention(q, kk, vv, pos,
+                                                        start), reps=5)
+            plain_ms = cuda_ms(lambda: causal_attention_plain(
+                q, kk.repeat_interleave(rep, dim=2),
+                vv.repeat_interleave(rep, dim=2), pos, start), reps=3)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, vv))
+            mask = visible[:, None]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=rep > 1)
+
+            lib_ms = cuda_ms(sdpa, reps=5)
+            lib = sdpa().transpose(1, 2)
+            lib_err = (lib.float() - got.float()).abs()[has_key].max().item()
+            bms, by = _causal_bound(b, s, t, h, kh, d, pos, starts,
+                                    q.element_size(), kind)
+            rec = {"shape": _causal_shape(b, s, t, h, kh, pos, kind),
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+            log(f"K4 causal_fwd {rec['shape']}: err {err:.3g} (atol "
+                f"{atol}), keyless rows {int(empty.sum())} = mean of V "
+                f"(err {merr:.3g}); kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms (vs kernel on "
+                f"rows with keys: {lib_err:.3g}), bound {bms:.4f} ms ({by})")
+            results.setdefault("causal_fwd", []).append(rec)
+            del q, kk, vv, got, ref, kr, vr, qt, kt, vt, lib
             torch.cuda.empty_cache()
 
 
@@ -564,6 +683,8 @@ def phase_lane(nslots, card, timings):
 def _kernel_class(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "K1 flash_fwd"
+    if "causal_fwd_kernel" in name:
+        return "K4 causal_fwd"
     if any(t in name for t in ("gemm", "cutlass", "sm90_", "cublas",
                                "nvjet")):
         return "GEMM (cuBLAS)"
@@ -579,11 +700,11 @@ def _requeue(st, P, texts):
         st.bump(key)
 
 
-def _profile_drain(emb, n_texts, warm_s, card):
-    """Drain once under torch.profiler and sum the device time of each
-    kernel by class; returns the summary (device ms per class, and as a
-    share of the unprofiled warm drain's wall `warm_s`) or
-    {"not_measured": reason}."""
+def _profile_drain(lane, n_texts, warm_s, card):
+    """Drain `lane` (an Embedder or a Completer) once under
+    torch.profiler and sum the device time of each kernel by class;
+    returns the summary (device ms per class, and as a share of the
+    unprofiled warm drain's wall `warm_s`) or {"not_measured": reason}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -591,10 +712,10 @@ def _profile_drain(emb, n_texts, warm_s, card):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        n = emb.run_once()
+        n = lane.run_once()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    check(n == n_texts, f"profiled drain embedded {n} of {n_texts}")
+    check(n == n_texts, f"profiled drain served {n} of {n_texts}")
     by_class: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for evt in prof.events():
@@ -617,8 +738,174 @@ def _profile_drain(emb, n_texts, warm_s, card):
         log(f"  {cls}: {ms:.2f} ms ({100 * ms / busy:.1f}% of device)")
     for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
         log(f"  top kernel {ms:8.2f} ms  {name[:90]}")
+    # the PyTorch operators whose own launches took that time
+    by_op = {e.key: e.self_device_time_total / 1e3
+             for e in prof.key_averages() if e.key.startswith("aten::")}
+    for op, ms in sorted(by_op.items(), key=lambda x: -x[1])[:6]:
+        log(f"  top operator {ms:8.2f} ms  {op}")
     return {"wall_ms": wall_ms, "device_ms": busy,
             "by_class_ms": by_class}
+
+
+# -- phase 5: the completion lane ---------------------------------------------
+
+def _prompts(rng):
+    """8 prompts of 40-900 bytes (one bucket-1024 batch after BOS) and
+    one of ~1500 bytes for the serial path's bucket 2048."""
+    words = ["".join(rng.choice(list("abcdefghijklmnop"),
+                                int(rng.integers(2, 8))))
+             for _ in range(300)]
+
+    def text(nbytes):
+        out = ""
+        while len(out) < nbytes:
+            out += rng.choice(words) + " "
+        return out[:nbytes]
+
+    batch = {f"ask/{i}": text(n) for i, n in
+             enumerate((40, 130, 260, 390, 520, 650, 780, 900))}
+    return batch, ("ask/serial", text(1500))
+
+
+def _ask(st, P, prompts):
+    for key, text in prompts.items():
+        st.set(key, text)
+        st.label_or(key, P.LBL_INFER_REQ | P.LBL_WAITING)
+        st.bump(key)
+
+
+def _piece_tokenizer():
+    """The byte tokenizer, with every id past its 259-entry table folded
+    onto a byte: with random weights over 32,000 ids almost no sampled
+    token would otherwise stream a byte, and the check below could not
+    see a completion land."""
+    from libsplinter_tpu_torch.models import ByteTokenizer
+
+    class PieceTokenizer(ByteTokenizer):
+        def token_to_piece(self, tok: int) -> bytes:
+            return bytes([(tok - 3) % 256]) if tok >= 3 else b""
+
+    return PieceTokenizer()
+
+
+def _check_served(st, P, prompts):
+    """Every key READY with SERVICING and the request labels cleared,
+    its slot holding the rendered prompt (template none: the prompt)
+    with the completion appended after it."""
+    for key, text in prompts.items():
+        labels = st.labels(key)
+        check(labels & P.LBL_READY, f"{key}: not READY")
+        check(not labels & (P.LBL_SERVICING | P.LBL_INFER_REQ
+                            | P.LBL_WAITING), f"{key}: labels {labels:#x}")
+        got = st.get(key).rstrip(b"\0")
+        check(got.startswith(text.encode()), f"{key}: prompt not kept")
+        check(len(got) > len(text), f"{key}: no completion appended")
+
+
+def phase_completion(card, timings):
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
+    from libsplinter_tpu_torch.ops import _cuda
+
+    name = f"/spt-smoke-c{os.getpid()}"
+    st = None
+    try:
+        st = Store.create(name, nslots=256, max_val=8192, vec_dim=0)
+        cfg = DecoderConfig()
+        t0 = time.perf_counter()
+        model = CompletionModel(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"decoder: DecoderConfig() full width (12 layers, hidden 768, "
+            f"vocab {cfg.vocab_size}, bf16, seeded), buckets "
+            f"{model.buckets}, built in {time.perf_counter() - t0:.2f}s")
+        comp = Completer(st, model=model, tokenizer=_piece_tokenizer(),
+                         template="none")
+        comp.attach()
+        rng = np.random.default_rng(5)
+        batch, (skey, stext) = _prompts(rng)
+        _ask(st, P, batch)
+
+        _cuda.LAUNCHES.reset()                       # the main path
+        t0 = time.perf_counter()
+        n = comp.run_once()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        tokens = comp.stats.tokens
+        check(n == len(batch), f"served {n} of {len(batch)}")
+        check(_cuda.LAUNCHES["causal_fwd"] == cfg.layers,
+              f"K4 launches in the bucket-1024 drain: "
+              f"{_cuda.LAUNCHES['causal_fwd']} != {cfg.layers}")
+        st.set(skey, stext)
+        st.label_or(skey, P.LBL_INFER_REQ | P.LBL_WAITING)
+        st.bump(skey)
+        t0 = time.perf_counter()
+        check(comp.process_key(st.find_index(skey)), "serial request")
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        counts = dict(_cuda.LAUNCHES)
+        check(counts["causal_fwd"] == 2 * cfg.layers,
+              f"K4 launches after the bucket-2048 request: {counts}")
+        check(comp.stats.completions == len(batch) + 1, "completions")
+        _check_served(st, P, {**batch, skey: stext})
+        serial_tok = comp.stats.tokens - tokens
+        log(f"completion drain, cold: {n} requests, {tokens} tokens in "
+            f"{drain_s:.3f}s = {tokens / drain_s:.1f} tokens/s "
+            f"(bucket 1024, batch 8, incl. prefill) [{card}] (first "
+            f"reading)")
+        log(f"serial request: {len(stext)} bytes, bucket 2048, "
+            f"{serial_tok} tokens in {serial_s:.3f}s [{card}]")
+        timings["complete"] = {"requests": n, "tokens": tokens,
+                               "drain_s": drain_s,
+                               "tokens_per_s": tokens / drain_s,
+                               "serial_s": serial_s,
+                               "serial_tokens": serial_tok}
+
+        _ask(st, P, batch)
+        t0 = time.perf_counter()
+        check(comp.run_once() == len(batch), "warm drain")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_tok = comp.stats.tokens - tokens - serial_tok
+        log(f"completion drain, warm: {warm_tok} tokens in {warm_s:.3f}s "
+            f"= {warm_tok / warm_s:.1f} tokens/s [{card}] (first reading)")
+        timings["complete_warm"] = {"drain_s": warm_s, "tokens": warm_tok,
+                                    "tokens_per_s": warm_tok / warm_s}
+        _ask(st, P, batch)
+        timings["complete_profile"] = _profile_drain(comp, len(batch),
+                                                     warm_s, card)
+
+        # K4 in the whole model: the same weights with the plain
+        # attention on every prefill
+        ids = [np.asarray(comp._tok.encode(t), np.int32)
+               for t in batch.values()]
+        plain = CompletionModel(dataclasses.replace(cfg, flash_min_seq=0),
+                                params=model.module.state_dict(),
+                                device="cuda")
+        got = model.prefill_batch(ids)
+        want = plain.prefill_batch(ids)
+        model.reset()
+        plain.reset()
+        cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                     * np.linalg.norm(want, axis=1))
+        err = float(np.abs(got - want).max())
+        check(np.isfinite(got).all(), "non-finite prefill logits")
+        check(float(cos.min()) >= 0.999,
+              f"bf16 prefill logits, K4 vs plain attention: cosine "
+              f"{cos.min()}")
+        log(f"bucket-1024 prefill logits, K4 vs flash_min_seq=0 (bf16, "
+            f"same weights): min cosine {cos.min():.6f}, max abs err "
+            f"{err:.4g}")
+        timings["complete_logits"] = {"min_cosine": float(cos.min()),
+                                      "max_abs_err": err}
+        return counts
+    finally:
+        if st is not None:
+            st.close()
+            Store.unlink(name)
 
 
 def _lane_slots(requested: int) -> int:
@@ -661,7 +948,10 @@ def main() -> int:
         phase_build()
         phase_flash(results)
         phase_search_kernels(results, 1 << 20)
+        phase_causal(results)
         counts = phase_lane(_lane_slots(1 << 20), card, timings)
+        counts["causal_fwd"] = phase_completion(card,
+                                                timings)["causal_fwd"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -673,12 +963,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # the record per kernel: its main-path shape (bf16 K1 at B=8 S=2048;
-    # K2 at Q=8 k=16 and K3 at Q=8, the searcher's batches of phase 4)
+    # K2 at Q=8 k=16 and K3 at Q=8, the searcher's batches of phase 4;
+    # K4 at the bucket-1024 batch of phase 5)
     main_shape = {"flash_fwd": "B=8 S=2048 H=12 D=64 bf16",
                   "fused_topk": f"N={1 << 20} D={LANE_DIM} Q=8 k=16 f32",
-                  "cosine_scores": f"N={1 << 20} D={LANE_DIM} Q=8 f32"}
+                  "cosine_scores": f"N={1 << 20} D={LANE_DIM} Q=8 f32",
+                  "causal_fwd": CAUSAL_MAIN}
     kernels = []
-    for kname in ("flash_fwd", "fused_topk", "cosine_scores"):
+    for kname in ("flash_fwd", "fused_topk", "cosine_scores",
+                  "causal_fwd"):
         rec = next(r for r in results[kname]
                    if r["shape"] == main_shape[kname])
         kernels.append({

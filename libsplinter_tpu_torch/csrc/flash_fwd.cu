@@ -21,55 +21,19 @@
 //     masked only counts until a tile with a real key arrives: its
 //     rescale factor exp(-1e30 - m) is exactly 0;
 //   - probabilities are rounded to V's dtype before P.V (f32 sums).
-#include <cmath>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
+#include "attention.cuh"
 #include "common.cuh"
+
+using namespace attn;
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 64;   // keys per streamed tile
-constexpr int NT = 256;  // 16 x 16 threads
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides {  // element strides of a (B, S, H, D) view, D contiguous
-  long long b, s, h;
-};
-
-template <int D>
-constexpr int smem_floats() {
-  return (BQ + 2 * BK) * (D + 1) + BQ * (BK + 1) + BK;
-}
-
-// Thread (ty, tx) owns query rows ty + 16 i (i < 4), logit columns
-// tx + 16 j (j < 4) and output columns tx + 16 j (j < D / 16).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
                      T* __restrict__ out, int S, Strides sq, Strides sk,
                      Strides sv, Strides so, float scale) {
-  constexpr int DJ = D / 16;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;                 // (BQ, D + 1)
@@ -80,56 +44,25 @@ __global__ void __launch_bounds__(NT)
 
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   const int b = blockIdx.z, h = blockIdx.y, qt0 = blockIdx.x * BQ;
-  const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const float* mb = mask + (long long)b * S;
 
-  for (int e = t; e < BQ * D; e += NT) {
-    const int r = e / D, c = e % D, row = qt0 + r;
-    Qs[r * LD + c] = row < S ? to_f(qb[row * sq.s + c]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+  load_rows<T, D>(Qs, q + b * sq.b + h * sq.h, sq.s, qt0, BQ, S);
+  RowState<D> st;
+  st.init();
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // previous tile's Ps/Vs reads are done
-    for (int e = t; e < BK * D; e += NT) {
-      const int r = e / D, c = e % D, row = k0 + r;
-      Ks[r * LD + c] = row < S ? to_f(kb[row * sk.s + c]) : 0.f;
-      Vs[r * LD + c] = row < S ? to_f(vb[row * sv.s + c]) : 0.f;
-    }
+    load_rows<T, D>(Ks, kb, sk.s, k0, BK, S);
+    load_rows<T, D>(Vs, vb, sv.s, k0, BK, S);
     for (int e = t; e < BK; e += NT) Ms[e] = k0 + e < S ? mb[k0 + e] : 0.f;
     __syncthreads();
 
     float s[4][4];
+    qk_tile<D>(Qs, Ks, ty, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = Ks[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
@@ -137,43 +70,10 @@ __global__ void __launch_bounds__(NT)
         if (!(Ms[c] > 0.f)) x = NEG_INF;
         if (k0 + c >= S) x = -INFINITY;  // past the end: not a key at all
         s[i][j] = x;
-        mx = fmaxf(mx, x);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mnew = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mnew);
-        sum += p;
-        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] =
-            to_f(from_f<T>(p));
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[i] - mnew);
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-      m[i] = mnew;
-    }
+    softmax_tile<T, D>(s, Ps, st, ty, tx);
     __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float p[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (BK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
+    pv_tile<D>(Ps, Vs, st, ty, tx);
   }
 
   T* ob = out + b * so.b + h * so.h;
@@ -182,8 +82,8 @@ __global__ void __launch_bounds__(NT)
     const int row = qt0 + ty + 16 * i;
     if (row >= S) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      ob[row * so.s + tx + 16 * j] = from_f<T>(acc[i][j] / l[i]);
+    for (int j = 0; j < D / 16; ++j)
+      ob[row * so.s + tx + 16 * j] = from_f<T>(st.acc[i][j] / st.l[i]);
   }
 }
 
@@ -191,7 +91,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* out, int B, int S, int H, Strides sq, Strides sk, Strides sv,
            Strides so, float scale, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * (int)sizeof(float);
+  const int smem = tile_floats<D>(BK) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

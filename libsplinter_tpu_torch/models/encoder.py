@@ -77,11 +77,15 @@ def _rotary_angles(seq_len: int, head_dim: int, device,
 
 def _apply_rotary(x, cos, sin):
     """x: (B, S, H, D).  Rotates pairs (x1, x2) = (x[..., :half], rest)
-    with cos/sin (S, D/2) cast to x's dtype first."""
+    with cos/sin cast to x's dtype first: (S, D/2) shared across the
+    batch, or (B, S, D/2) per row (the decoder's left-padded batches
+    offset each row's positions)."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
-    cos = cos[None, :, None, :].to(x.dtype)
-    sin = sin[None, :, None, :].to(x.dtype)
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
@@ -236,11 +240,11 @@ def init_params(module: Encoder, generator: torch.Generator) -> None:
             m.bias.zero_()
 
 
-def params_from_jax(flax_params, cfg: EncoderConfig) -> dict:
-    """The weight bridge: a flax encoder tree (``{"params": ...}`` or
-    the inner dict; leaves numpy or array-likes) -> this Encoder's
-    state_dict.  Dense kernels transpose from (in, out) to (out, in);
-    `embedding` and LayerNorm `scale` leaves become `weight`."""
+def state_dict_from_flax(flax_params) -> dict:
+    """A flax tree (``{"params": ...}`` or the inner dict; leaves numpy
+    or array-likes) -> a state_dict of f32 tensors named by the tree's
+    paths.  Dense kernels transpose from (in, out) to (out, in);
+    `embedding` and norm `scale` leaves become `weight`."""
     tree = flax_params.get("params", flax_params)
     out: dict[str, torch.Tensor] = {}
 
@@ -258,6 +262,14 @@ def params_from_jax(flax_params, cfg: EncoderConfig) -> dict:
                 np.ascontiguousarray(arr))
 
     walk(tree, [])
+    return out
+
+
+def params_from_jax(flax_params, cfg: EncoderConfig) -> dict:
+    """The weight bridge: a flax encoder tree -> this Encoder's
+    state_dict (``state_dict_from_flax``; the nomic variant drops the
+    unused position table)."""
+    out = state_dict_from_flax(flax_params)
     if cfg.variant == "nomic":
         out.pop("pos_emb.weight", None)
     return out
@@ -294,6 +306,25 @@ def read_safetensors(path: str) -> dict[str, np.ndarray]:
                 torch.bfloat16).float().numpy()
         out[name] = arr.astype(np.float32)
     return out
+
+
+def write_safetensors(path: str, tensors: dict[str, np.ndarray]) -> None:
+    """Write float32 tensors in the container ``read_safetensors``
+    reads: the JSON header padded with spaces to an 8-byte multiple."""
+    header, blobs, off = {}, [], 0
+    for name, arr in tensors.items():
+        data = np.ascontiguousarray(arr, np.float32).tobytes()
+        header[name] = {"dtype": "F32", "shape": list(np.shape(arr)),
+                        "data_offsets": [off, off + len(data)]}
+        blobs.append(data)
+        off += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
 
 
 def _hf_layer_names(i: int) -> dict[str, list[str]]:

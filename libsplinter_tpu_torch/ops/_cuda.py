@@ -31,8 +31,9 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "cosine_scores": "cosine_scores.cu",
     "fused_topk": "fused_topk.cu",
+    "causal_fwd": "causal_fwd.cu",
 }
-_HEADERS = ("common.cuh", "score_tile.cuh")
+_HEADERS = ("common.cuh", "score_tile.cuh", "attention.cuh")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -51,6 +52,11 @@ _SIGNATURES = {
     "fused_topk": {
         "sptk_fused_topk": [P, I64, I32, P, I32, P, P, I32, I32, I32, I32,
                             P, P, P, P, I32, P],
+    },
+    "causal_fwd": {
+        "sptk_causal_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32, I32,
+                            I32, I32, I64, I64, I64, I64, I64, I64, I64,
+                            I64, I64, I64, I64, I64, F32, P],
     },
 }
 

@@ -1,24 +1,28 @@
-"""Blockwise (flash-style) bidirectional attention for long buckets.
+"""Blockwise (flash-style) attention for long buckets: the encoder's
+bidirectional attention (kernel K1) and the decoder's causal prefill
+attention over its KV cache (kernel K4).
 
-The encoder's plain attention materialises (B, H, S, S) float32 logits
-in device memory — at S = 2048 that is 16 MB per (batch row, head) and
-it caps the batch size long before the arithmetic saturates.  Buckets
-at or above ``EncoderConfig.flash_min_seq`` therefore attend through
-kernel K1 (csrc/flash_fwd.cu): K/V stream through shared memory in
-tiles under an online f32 softmax, and nothing quadratic reaches
-device memory.
+The plain attention materialises (B, H, S, S) float32 logits (the
+decoder's: (B, H, S, T) over the whole cache) in device memory — at
+S = 2048 that is 16 MB per (batch row, head) and it caps the batch
+size long before the arithmetic saturates.  Buckets at or above the
+config's ``flash_min_seq`` therefore attend through K1
+(csrc/flash_fwd.cu) or K4 (csrc/causal_fwd.cu): K/V stream through
+shared memory in tiles under an online f32 softmax, and nothing
+quadratic reaches device memory.
 
-Layout and semantics follow the JAX package's ``flash_attention``:
-(B, S, H, D) at the public function, S padded to a multiple of
-min(block_q, S) with masked keys, masked logits at the finite
-``NEG_INF`` so a fully-masked row (a padded batch row) is the uniform
-average over the padded length instead of NaN.  Those rows are
-don't-care values — the encoder's pooling multiplies them by a zero
-mask.
+Layout and semantics follow the JAX package's ``flash_attention`` and
+``causal_flash_attention``: (B, S, H, D) at the public functions (K1
+pads S to a multiple of min(block_q, S) with masked keys, as the JAX
+layout helper does), masked logits at the finite ``NEG_INF`` so a row
+with no visible key (a padded batch row, a left-pad query) is a
+uniform average instead of NaN.  Those rows are don't-care values —
+the encoder's pooling multiplies them by a zero mask, and the decoder
+masks the pad slots its next layer writes them into.
 
-On CPU tensors the same function runs the plain PyTorch math
-(``_mha_plain``); on CUDA tensors it launches K1 or raises.  Forward
-only: the port has no training path yet.
+On CPU tensors the functions run the plain PyTorch math; on CUDA
+tensors they launch their kernel or raise.  Forward only: the port has
+no training path yet.
 """
 from __future__ import annotations
 
@@ -123,3 +127,100 @@ def flash_attention(q, k, v, mask, *, block_q: int = 256):
     q, k, v, mask, pad = _pad_seq(q, k, v, mask, block_q)
     out = flash_fwd_cuda(q, k, v, mask.to(torch.float32))
     return out[:, :s] if pad else out
+
+
+# -- K4: decoder-prefill causal attention -------------------------------------
+
+def causal_attention_plain(q, kk, vv, pos, start):
+    """K4's plain PyTorch version — the counterpart of the JAX package's
+    ``_causal_jnp`` (the decoder's short-chunk path): the query at cache
+    slot pos + i sees keys start[b] <= j <= pos + i.  Logits in q's
+    dtype, then f32 with the finite mask, f32 softmax, probabilities
+    cast back to q's dtype for P.V.
+
+    q: (B, S, H, D); kk/vv: (B, T, H, D) with the kv heads already
+    repeated to H; pos: int; start: (B,) int.  Returns (B, S, H, D)."""
+    s, t = q.shape[1], kk.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(q.shape[-1])
+    slots = pos + torch.arange(s, device=q.device)
+    keys = torch.arange(t, device=q.device)
+    visible = ((keys[None, :] <= slots[:, None])[None]
+               & (keys[None, None, :] >= start.to(q.device)[:, None, None]))
+    logits = torch.where(visible[:, None], logits.float(), NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+
+
+def causal_fwd_cuda(q, kk, vv, pos: int, start):
+    """Launch K4.  q: (B, S, H, D) CUDA f32 or bf16 view with the last
+    dim contiguous; kk/vv: (B, T, KH, D) cache views of q's dtype, H a
+    multiple of KH (query head h reads kv head h // (H / KH)); pos: the
+    cache slot of q's first row, pos + S <= T; start: (B,) int32 CUDA
+    left-pad offsets.  Returns a new (B, S, H, D) tensor in q's dtype.
+
+    Replaces libsplinter_tpu/ops/flash_attention.py `_causal_kernel`;
+    bound on an H100 by the bytes of q, the visible K/V and the output
+    at the decoder's shapes, run here as f32 FMA from shared memory (see
+    the source's header for the design)."""
+    if not (q.is_cuda and kk.is_cuda and vv.is_cuda and start.is_cuda):
+        raise ValueError("causal_fwd_cuda needs CUDA tensors")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or kk.dtype != q.dtype or vv.dtype != q.dtype:
+        raise ValueError(f"causal_fwd_cuda: dtype {q.dtype} / {kk.dtype} "
+                         f"/ {vv.dtype} (f32 or bf16, all equal)")
+    if start.dtype != torch.int32:
+        raise ValueError("causal_fwd_cuda: start must be int32")
+    if q.dim() != 4 or kk.dim() != 4 or vv.shape != kk.shape:
+        raise ValueError(f"causal_fwd_cuda: shapes {tuple(q.shape)} "
+                         f"{tuple(kk.shape)} {tuple(vv.shape)}")
+    b, s, h, d = q.shape
+    t, kh = kk.shape[1], kk.shape[2]
+    if kk.shape[0] != b or kk.shape[3] != d or h % kh:
+        raise ValueError(f"causal_fwd_cuda: q {tuple(q.shape)} against "
+                         f"cache {tuple(kk.shape)}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"causal_fwd_cuda: head dim {d} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if start.shape != (b,):
+        raise ValueError(f"causal_fwd_cuda: start {tuple(start.shape)}")
+    if not 0 <= pos <= t - s:
+        raise ValueError(f"causal_fwd_cuda: slots {pos}..{pos + s - 1} "
+                         f"outside the cache's {t}")
+    for x in (q, kk, vv):
+        if x.stride(-1) != 1:
+            raise ValueError("causal_fwd_cuda: last dim must be contiguous")
+    start = start.contiguous()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = []
+    for x in (q, kk, vv, out):
+        strides += [x.stride(0), x.stride(1), x.stride(2)]
+    _cuda.launch("causal_fwd", "sptk_causal_fwd",
+                 q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                 start.data_ptr(), out.data_ptr(), b, s, h, d, t, pos,
+                 h // kh, int(q.dtype == torch.bfloat16), *strides,
+                 1.0 / math.sqrt(d), _cuda.stream_handle(q.device))
+    return out
+
+
+def causal_flash_attention(q, kk, vv, pos: int, start=None):
+    """Decoder-prefill attention without device-quadratic logits.
+
+    q: (B, S, H, D) queries at cache slots pos..pos+S-1; kk/vv:
+    (B, T, KH, D) the updated cache with the kv heads UNREPEATED; pos:
+    int; start: None or (B,) left-pad offsets.  Returns (B, S, H, D) in
+    q's dtype.  CUDA tensors run kernel K4; CPU tensors run the plain
+    math (``causal_attention_plain``) on the repeated cache.
+
+    Unlike the JAX host function this pads nothing: the key length is
+    the cache's T, not S, so zero query rows past S would change no
+    real row, and the kernel masks its ragged last query tile itself."""
+    b, h = q.shape[0], q.shape[2]
+    if start is None:
+        start = torch.zeros(b, dtype=torch.int32, device=q.device)
+    if not q.is_cuda:
+        rep = h // kk.shape[2]
+        if rep > 1:
+            kk = kk.repeat_interleave(rep, dim=2)
+            vv = vv.repeat_interleave(rep, dim=2)
+        return causal_attention_plain(q, kk, vv, pos, start)
+    return causal_fwd_cuda(q, kk, vv, int(pos), start.to(torch.int32))

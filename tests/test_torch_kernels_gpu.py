@@ -21,7 +21,8 @@ import torch
 
 from libsplinter_tpu_torch.ops import _cuda
 from libsplinter_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain)
+    causal_attention_plain, causal_flash_attention, flash_attention,
+    flash_attention_plain)
 from libsplinter_tpu_torch.ops.similarity import (
     _cosine_scores_plain, _fused_topk_plain, _stable_topk,
     cosine_scores_cuda, fused_topk_cuda, topk_program)
@@ -83,6 +84,83 @@ def test_flash_takes_strided_views(cuda):
     got = flash_attention(q, k, v, mask)
     ref = flash_attention_plain(q, k, v, mask)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+def _causal_inputs(rng, b, s, t, h, kh, d, dtype, dev):
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    kk, vv = (rng.standard_normal((b, t, kh, d)).astype(np.float32)
+              for _ in range(2))
+    return [torch.from_numpy(x).to(dev, dtype) for x in (q, kk, vv)]
+
+
+def _causal_ref(q, kk, vv, pos, start):
+    """The plain version in f32 on the same (possibly bf16) values."""
+    rep = q.shape[2] // kk.shape[2]
+    kk, vv = (x.float().repeat_interleave(rep, dim=2) for x in (kk, vv))
+    return causal_attention_plain(q.float(), kk, vv, pos, start)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t,pos,starts,kh,d", [
+    (256, 512, 0, (0, 100, 256), 4, 64),    # left pad + a batch-pad row
+    (100, 256, 60, (0, 90, 256), 2, 64),    # joiner-style pos > 0, ragged S
+    (64, 128, 64, (10, 70, 128), 1, 16),    # GQA rep 4 at the window tail
+    (130, 200, 0, (0, 3, 200), 2, 128),     # T not a multiple of the tile
+])
+def test_causal_matches_plain(cuda, dtype, s, t, pos, starts, kh, d):
+    rng = np.random.default_rng(s + t + pos + d)
+    q, kk, vv = _causal_inputs(rng, 3, s, t, 4, kh, d, dtype, cuda)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    before = _cuda.LAUNCHES["causal_fwd"]
+    got = causal_flash_attention(q, kk, vv, pos, start)
+    assert _cuda.LAUNCHES["causal_fwd"] == before + 1
+    ref = _causal_ref(q, kk, vv, pos, start)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.to(dtype).float(),
+                               atol=atol, rtol=0)
+    # a query with no visible key is the mean of V over all T slots
+    mean = vv[2].float().mean(dim=0).repeat_interleave(4 // kh, dim=0)
+    torch.testing.assert_close(got[2].float(), mean[None].expand(s, -1, -1),
+                               atol=atol, rtol=0)
+
+
+def test_causal_takes_a_row_of_the_batch_cache(cuda):
+    """join_row prefills one row of the live batch cache: a (1, T, KH, D)
+    slice, at pos > 0."""
+    rng = np.random.default_rng(11)
+    q, kk, vv = _causal_inputs(rng, 4, 64, 256, 4, 2, 64, torch.float32,
+                               cuda)
+    start = torch.tensor([150], dtype=torch.int32, device=cuda)
+    got = causal_flash_attention(q[2:3], kk[2:3], vv[2:3], 128, start)
+    ref = _causal_ref(q[2:3], kk[2:3], vv[2:3], 128, start)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+def test_decoder_prefill_through_k4_matches_plain_attention(cuda):
+    """A tiny f32 decoder on the card: a left-padded bucket-32 batch and
+    a join at pos > 0 through K4 (flash_min_seq=16) against the same
+    weights with the plain attention, logits within 1e-4."""
+    from libsplinter_tpu_torch.models.decoder import (CompletionModel,
+                                                      DecoderConfig)
+
+    cfg = DecoderConfig.tiny(dtype=torch.float32, flash_min_seq=16)
+    m = CompletionModel(cfg, buckets=(16, 32), temp=0.0, device=cuda)
+    plain = CompletionModel(DecoderConfig.tiny(dtype=torch.float32,
+                                               flash_min_seq=0),
+                            buckets=(16, 32), temp=0.0,
+                            params=m.module.state_dict(), device=cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(3, 1024, n).astype(np.int32) for n in (30, 9, 2)]
+    before = _cuda.LAUNCHES["causal_fwd"]
+    got = [m.prefill_batch(prompts), m.join_row(prompts[1][:5], 2)]
+    # the bucket-32 batch and the bucket-16 join at pos 16: both >= 16
+    assert _cuda.LAUNCHES["causal_fwd"] == before + 2 * cfg.layers
+    want = [plain.prefill_batch(prompts), plain.join_row(prompts[1][:5], 2)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
 def _lane(rng, n, d, dev):
