@@ -1,6 +1,7 @@
-"""Drive the torch port's embed -> vector-commit -> search path and its
-dense completion lane on one NVIDIA GPU, with every CUDA kernel held
-against its plain PyTorch version.
+"""Drive the torch port's embed -> vector-commit -> search path, its
+dense completion lane and its continuous (block-paged) completion lane
+on one NVIDIA GPU, with every CUDA kernel held against its plain
+PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -15,10 +16,15 @@ Phases (any failure exits non-zero and prints no result line):
      f32; K3 cosine scores and K2 fused top-k over a 1,048,576 x 768
      f32 lane; K4 causal prefill attention over a 2048-slot cache at
      B=8 S=1024, B=1 S=2048, a joiner at pos > 0 and GQA 12/4, bf16
-     and f32, each with queries that see no key), with CUDA-event times
-     of the kernel, the plain version and a PyTorch yardstick call the
-     port never makes, beside the bound (the larger of bytes / 3.35
-     TB/s and FLOPs / the card's peak for the input type);
+     and f32, each with queries that see no key; K5 ragged paged
+     attention over a 513-block pool at B=32 H=12 D=64 page 128 with
+     seeded lengths, a dead row and a page-boundary row, over bf16, f32,
+     int8 and int4 pools, GQA 12/4, and a 64-token multi-query stack,
+     each case also launched with f32 queries over f32 or quantized
+     pools and held to 1e-5), with CUDA-event times of the kernel, the plain version and a
+     PyTorch yardstick call the port never makes, beside the bound (the
+     larger of bytes / 3.35 TB/s and FLOPs / the card's peak for the
+     input type);
   4. end to end: a file-backed store with 1,048,576 slots of 768-d
      vectors (~1,000,000 committed through the store's batch commit),
      the embedder at full Nomic-Embed-Text-v1.5 width (bf16, seeded
@@ -36,8 +42,20 @@ Phases (any failure exits non-zero and prints no result line):
      appended; the batched prefill logits are held against the same
      weights with flash_min_seq=0 (the plain attention); a profiled
      warm drain splits the device time by kernel class;
-  6. launch counts: how often each kernel ran in phases 4 (K1-K3) and
-     5 (K4), each counted from 0 just before its lane runs.
+  6. continuous lane: the same decoder behind a Completer at the lane's
+     defaults (32 rows, page 128, 513 blocks, prefix cache on, two
+     chunks in flight), 128 new tokens a request: 48 requests in two
+     waves (24 distinct prompts of 40-1500 bytes, 22 sharing a 700-byte
+     prefix, 2 exact repeats), the second queued while the first
+     decodes; every key READY, no failure caught by the lane and every
+     request's 128 tokens streamed, K5 launched on decode and on suffix
+     prefills, >= 20 prefix hits, no page leaked, the pool's bytes equal
+     to its geometry; a warm and a profiled drain of 16; 8 requests
+     again over int8 and int4 pools (K5 launched, no abort, full token
+     count); a paged prefill + decode step
+     against the dense prefill + decode_one (cosine >= 0.999);
+  7. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+     (K4) and 6 (K5), each counted from 0 just before its lane runs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -67,17 +85,25 @@ REPLACES = {
     "fused_topk": "libsplinter_tpu/ops/similarity.py:280",
     "cosine_scores": "libsplinter_tpu/ops/similarity.py:44",
     "causal_fwd": "libsplinter_tpu/ops/flash_attention.py:182",
+    "paged_fwd": "libsplinter_tpu/ops/paged_attention.py:130",
 }
 SOURCES = {
     "flash_fwd": "libsplinter_tpu_torch/csrc/flash_fwd.cu",
     "fused_topk": "libsplinter_tpu_torch/csrc/fused_topk.cu",
     "cosine_scores": "libsplinter_tpu_torch/csrc/cosine_scores.cu",
     "causal_fwd": "libsplinter_tpu_torch/csrc/causal_fwd.cu",
+    "paged_fwd": "libsplinter_tpu_torch/csrc/paged_fwd.cu",
 }
 
 LANE_DIM = 768
 F32_ATOL = 1e-5
 BF16_ATOL = 2e-2
+# K5's bf16 outputs against the f32 plain version rounded to bf16, per
+# element: one bf16 ulp of |ref| (at most 2^-7 |ref|: the two may round
+# to neighbouring values) and, over bf16 pools, 2^-8 of the attention-
+# weighted mean of |V| (the probabilities are rounded to bf16, relative
+# error 2^-9, before P.V), plus F32_ATOL
+PAGED_ULP, PAGED_P_ROUND = 2.0 ** -7, 2.0 ** -8
 
 
 class PhaseError(RuntimeError):
@@ -312,6 +338,193 @@ def phase_causal(results):
             results.setdefault("causal_fwd", []).append(rec)
             del q, kk, vv, got, ref, kr, vr, qt, kt, vt, lib
             torch.cuda.empty_cache()
+
+
+# K5 cases: (q tokens S, kv heads KH, pool storage, lengths).  B = 32
+# rows of the continuous lane's batch at page 128 with P = 16 table
+# entries (a 2048 window), H = 12, D = 64; the lengths are seeded in
+# [1, 2047] with a dead row (0) and a row ending on a page boundary.
+# The multi-query case is a suffix prefill's bucket-64 stack on one row
+# at length 700.
+PAGED_MAIN = "B=32 S=1 H=12 KH=12 page=128 P=16 bf16"
+
+
+def _paged_lengths(b):
+    lens = np.random.default_rng(17).integers(1, 2048, b)
+    lens[5], lens[9] = 0, 1024
+    return lens
+
+
+PAGED_CASES = (
+    (1, 12, "bf16", _paged_lengths(32)),
+    (1, 12, "f32", _paged_lengths(32)),
+    (1, 12, "int8", _paged_lengths(32)),
+    (1, 12, "int4", _paged_lengths(32)),
+    (1, 4, "bf16", _paged_lengths(32)),              # GQA 12/4
+    (64, 12, "bf16", np.array([700])),               # multi-query stack
+)
+
+
+def _paged_inputs(s, kh, kind, lens, page=128, n_pages=16, h=12, d=64):
+    """A pool of 1 + B * P blocks (the lane's 513 at B = 32), each row's
+    pages distinct and shuffled, unused table entries at the trash
+    block 0.  Queries bf16 except over f32 pools (the model's
+    activations); quantized pools hold random codes and scales of unit
+    magnitude."""
+    import torch
+
+    b = len(lens)
+    g = torch.Generator(device="cuda").manual_seed(int(s + kh + len(kind)))
+    n_blocks = 1 + b * n_pages
+    shape = (n_blocks, kh, page, d // 2 if kind == "int4" else d)
+    scales = None
+    if kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        kp, vp = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                  for _ in range(2))
+    else:
+        lo, hi, dt, amp = ((-127, 128, torch.int8, 0.02) if kind == "int8"
+                           else (0, 256, torch.uint8, 0.3))
+        kp, vp = (torch.randint(lo, hi, shape, generator=g, device="cuda",
+                                dtype=dt) for _ in range(2))
+        scales = [torch.rand((n_blocks, kh), generator=g, device="cuda")
+                  * amp + amp / 10 for _ in range(2)]
+    perm = torch.randperm(n_blocks - 1, generator=g, device="cuda") + 1
+    tables = perm.reshape(b, n_pages).to(torch.int32)
+    need = torch.from_numpy(-(-(lens + s - 1) // page)).cuda()
+    tables[torch.arange(n_pages, device="cuda")[None] >= need[:, None]] = 0
+    qdt = torch.float32 if kind == "f32" else torch.bfloat16
+    qshape = (b, h, d) if s == 1 else (b, s, h, d)
+    q = torch.randn(qshape, generator=g, device="cuda").to(qdt)
+    lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+    return q, kp, vp, scales, tables, lengths
+
+
+def _paged_bound(lens, s, h, kh, d, page, n_pages, kind, qelt):
+    """The least time for this run's inputs: the bytes of q, the output,
+    the tables and lengths, each row's visible K/V (keys below
+    length + S - 1) and, for quantized pools, the scales of the pages
+    read; the FLOPs 4 D per (query, visible key) pair and head."""
+    row_bytes = {"bf16": 2 * d, "f32": 4 * d, "int8": d, "int4": d // 2}
+    vis = np.minimum(lens + s - 1, n_pages * page).clip(0)
+    nbytes = 2.0 * vis.sum() * kh * row_bytes[kind]
+    if kind in ("int8", "int4"):
+        nbytes += 2.0 * (-(-vis // page)).sum() * kh * 4
+    nbytes += 2.0 * len(lens) * s * h * d * qelt + len(lens) * (n_pages + 1) * 4
+    pairs = sum(int(min(n + t, n_pages * page)) for n in lens
+                for t in range(s) if n + t > 0)
+    flops = 4.0 * d * h * pairs
+    return bound(nbytes, flops, "f32" if kind == "f32" else "bf16")
+
+
+def _paged_shape(lens, s, kh, kind):
+    return (f"B={len(lens)} S={s} H=12 KH={kh} page=128 P=16 {kind}"
+            + (f" len={int(lens[0])}" if len(lens) == 1 else ""))
+
+
+def phase_paged(results):
+    import torch
+    import torch.nn.functional as F
+
+    from libsplinter_tpu_torch.ops.paged_attention import (
+        dequantize_pool, paged_attention, paged_attention_plain)
+
+    page, n_pages, h, d = 128, 16, 12, 64
+    for s, kh, kind, lens in PAGED_CASES:
+        q, kp, vp, scales, tables, lengths = _paged_inputs(s, kh, kind, lens)
+        kw = {} if scales is None else {"k_scales": scales[0],
+                                        "v_scales": scales[1]}
+        got = paged_attention(q, kp, vp, tables, lengths, **kw)
+        # f32 pools and queries: bf16 pools widened, quantized pools as
+        # they are (the kernel dequantizes to f32 itself)
+        fk, fv = (kp, vp) if scales else (kp.float(), vp.float())
+        ref32 = paged_attention_plain(q.float(), fk, fv, tables, lengths,
+                                      *(scales or ()))
+        # the same launch in f32 holds the kernel to 1e-5: every storage
+        # kind's dequantization, every tile of a long row, and the
+        # multi-query stack (the bf16 launch alone is held to rounding)
+        got32 = got if q.dtype == torch.float32 else paged_attention(
+            q.float(), fk, fv, tables, lengths, **kw)
+        torch.cuda.synchronize()
+
+        def by_token(x):
+            return x.float() if s > 1 else x.float()[:, None]
+
+        g4, r4 = by_token(got), by_token(ref32.to(q.dtype))
+        sees = (lengths.long()[:, None]
+                + torch.arange(s, device="cuda")[None]) > 0      # (B, S)
+        check(bool(torch.isfinite(g4[sees]).all()),
+              f"K5 {kind}: non-finite output")
+        diff = (g4[sees] - r4[sees]).abs()
+        err = diff.max().item()
+        if q.dtype == torch.float32:
+            atol = f"{F32_ATOL}"
+            check(err <= F32_ATOL, f"K5 {kind} S={s} KH={kh}: max err {err}")
+        else:
+            lim = PAGED_ULP * by_token(ref32)[sees].abs() + F32_ATOL
+            atol = "2^-7 |ref|"
+            if kind == "bf16":
+                lim += PAGED_P_ROUND * by_token(paged_attention_plain(
+                    q.float(), fk, fv.abs(), tables, lengths))[sees]
+                atol += " + 2^-8 P|V|"
+            worst = (diff / lim).max().item()
+            check(worst <= 1.0, f"K5 {kind} S={s} KH={kh}: max err {err}, "
+                  f"{worst:.3f} of its limit {atol}")
+            atol += f" + {F32_ATOL}; worst {worst:.3f} of it"
+        g32 = by_token(got32)
+        err32 = (g32[sees] - by_token(ref32)[sees]).abs().max().item()
+        check(err32 <= F32_ATOL,
+              f"K5 {kind} S={s} KH={kh}, f32 queries: max err {err32}")
+        dead = int((~sees).sum())
+        check(bool((g4[~sees] == 0).all() and (g32[~sees] == 0).all()),
+              "K5 dead rows not exactly 0")
+        reps = 20 if s == 1 else 50
+        ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lengths,
+                                             **kw), reps=reps)
+        plain_ms = cuda_ms(lambda: paged_attention_plain(
+            q, kp, vp, tables, lengths, *(scales or ())), reps=3)
+
+        # the yardstick: SDPA over a dense view gathered beforehand (the
+        # gather, with the dequantization, timed on its own)
+        def gather():
+            ks, vs = kp, vp
+            if scales:
+                ks, vs = (dequantize_pool(p, sc).to(q.dtype)
+                          for p, sc in zip((kp, vp), scales))
+            t = tables.long()
+            return [x[t].permute(0, 2, 1, 3, 4).reshape(
+                len(lens), kh, n_pages * page, d) for x in (ks, vs)]
+
+        gather_ms = cuda_ms(gather, reps=5)
+        kd, vd = gather()
+        qt = (q[:, None] if s == 1 else q).transpose(1, 2)
+        keys = torch.arange(n_pages * page, device="cuda")
+        mask = (keys[None, None, :]
+                < (lengths.long()[:, None, None]
+                   + torch.arange(s, device="cuda")[None, :, None]))[:, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=mask, enable_gqa=kh < h)
+
+        lib_ms = cuda_ms(sdpa, reps=reps)
+        lib = sdpa().transpose(1, 2).float()
+        lib_err = (lib[sees] - g4[sees]).abs().max().item()
+        bms, by = _paged_bound(lens, s, h, kh, d, page, n_pages, kind,
+                               q.element_size())
+        rec = {"shape": _paged_shape(lens, s, kh, kind),
+               "max_abs_err": err, "f32_query_err": err32, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "gather_ms": gather_ms, "bound_ms": bms, "bound_by": by}
+        log(f"K5 paged_fwd {rec['shape']}: err {err:.3g} (atol {atol}), "
+            f"f32 queries over f32/quantized pools err {err32:.3g} (atol "
+            f"{F32_ATOL}), {dead} dead query rows exactly 0; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa on the gathered "
+            f"view {lib_ms:.4f} ms (+ gather {gather_ms:.3f} ms; vs kernel "
+            f"{lib_err:.3g}), bound {bms:.4f} ms ({by})")
+        results.setdefault("paged_fwd", []).append(rec)
+        del q, kp, vp, fk, fv, scales, got, got32, ref32, kd, vd, lib
+        torch.cuda.empty_cache()
 
 
 def _quantized_lane(n, d, seed):
@@ -586,7 +799,8 @@ def phase_lane(nslots, card, timings):
         timings["embed_warm"] = {"drain_s": warm_s,
                                  "embeddings_per_s": n / warm_s}
         _requeue(st, P, texts)
-        timings["profile"] = _profile_drain(emb, len(texts), warm_s, card)
+        timings["profile"] = _profile_drain(emb.run_once, len(texts), warm_s,
+                                        card)
 
         # the same model, moved to the CPU in f32 (the plain path)
         cpu_cfg = EncoderConfig(out_dim=LANE_DIM, max_len=2048,
@@ -685,6 +899,8 @@ def _kernel_class(name: str) -> str:
         return "K1 flash_fwd"
     if "causal_fwd_kernel" in name:
         return "K4 causal_fwd"
+    if "paged_fwd_kernel" in name:
+        return "K5 paged_fwd"
     if any(t in name for t in ("gemm", "cutlass", "sm90_", "cublas",
                                "nvjet")):
         return "GEMM (cuBLAS)"
@@ -700,11 +916,12 @@ def _requeue(st, P, texts):
         st.bump(key)
 
 
-def _profile_drain(lane, n_texts, warm_s, card):
-    """Drain `lane` (an Embedder or a Completer) once under
-    torch.profiler and sum the device time of each kernel by class;
-    returns the summary (device ms per class, and as a share of the
-    unprofiled warm drain's wall `warm_s`) or {"not_measured": reason}."""
+def _profile_drain(drive, n_texts, warm_s, card):
+    """Run `drive` (one drain of a lane, returning the requests it
+    served) under torch.profiler and sum the device time of each kernel
+    by class; returns the summary (device ms per class, and as a share
+    of the unprofiled warm drain's wall `warm_s`) or
+    {"not_measured": reason}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -712,7 +929,7 @@ def _profile_drain(lane, n_texts, warm_s, card):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        n = lane.run_once()
+        n = drive()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     check(n == n_texts, f"profiled drain served {n} of {n_texts}")
@@ -782,6 +999,10 @@ def _piece_tokenizer():
     from libsplinter_tpu_torch.models import ByteTokenizer
 
     class PieceTokenizer(ByteTokenizer):
+        # no id ends a completion early, so every request streams exactly
+        # max_new_tokens and a lane's token count is known in advance
+        eos_id = -1
+
         def token_to_piece(self, tok: int) -> bytes:
             return bytes([(tok - 3) % 256]) if tok >= 3 else b""
 
@@ -875,8 +1096,8 @@ def phase_completion(card, timings):
         timings["complete_warm"] = {"drain_s": warm_s, "tokens": warm_tok,
                                     "tokens_per_s": warm_tok / warm_s}
         _ask(st, P, batch)
-        timings["complete_profile"] = _profile_drain(comp, len(batch),
-                                                     warm_s, card)
+        timings["complete_profile"] = _profile_drain(
+            comp.run_once, len(batch), warm_s, card)
 
         # K4 in the whole model: the same weights with the plain
         # attention on every prefill
@@ -901,6 +1122,287 @@ def phase_completion(card, timings):
             f"{err:.4g}")
         timings["complete_logits"] = {"min_cosine": float(cos.min()),
                                       "max_abs_err": err}
+        return counts
+    finally:
+        if st is not None:
+            st.close()
+            Store.unlink(name)
+
+
+# -- phase 6: the continuous completion lane ----------------------------------
+
+def _continuous_prompts(rng):
+    """48 requests: 24 distinct prompts of 40-1500 bytes (one of 767
+    bytes: with BOS exactly 6 pages of 128 tokens), 22 sharing one
+    700-byte prefix then 20-200 bytes of their own, and 2 exact repeats
+    of the 767-byte prompt (full-cover prefix hits).  Wave 1 and wave 2
+    hold 24 each; the repeats and half of each family are in wave 2."""
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
+                                int(rng.integers(2, 9))))
+             for _ in range(500)]
+
+    def text(nbytes):
+        out = ""
+        while len(out) < nbytes:
+            out += rng.choice(words) + " "
+        return out[:nbytes]
+
+    distinct = [text(int(n)) for n in rng.integers(40, 1501, 23)]
+    page_exact = text(767)
+    prefix = text(700)
+    shared = [prefix + text(int(n)) for n in rng.integers(20, 201, 22)]
+    wave1 = {f"d/{i:02d}": t for i, t in enumerate(distinct[:12])}
+    wave1["d/page6"] = page_exact
+    wave1.update({f"s/{i:02d}": t for i, t in enumerate(shared[:11])})
+    wave2 = {f"d/{i:02d}": t for i, t in enumerate(distinct[12:], 12)}
+    wave2.update({f"s/{i:02d}": t for i, t in enumerate(shared[11:], 11)})
+    wave2.update({"r/0": page_exact, "r/1": page_exact})
+    return wave1, wave2
+
+
+def _drive_continuous(comp, st, P, waves, timeout=900.0):
+    """Queue waves[0], run the continuous lane on this thread (the
+    profiler sees its operators), queue each later wave once the lane
+    streams into the previous one, and stop the lane when every key is
+    READY.  Returns (requests served, wall seconds to the last READY)."""
+    keys = [k for w in waves for k in w]
+    done = {}
+    t0 = time.perf_counter()
+
+    def feeder():
+        deadline = time.monotonic() + timeout
+        for prev, wave in zip(waves, waves[1:]):
+            first = next(iter(prev))
+            while time.monotonic() < deadline and \
+                    st.value_len(first) <= len(prev[first]):
+                time.sleep(0.005)
+            _ask(st, P, wave)
+        busy = P.LBL_INFER_REQ | P.LBL_WAITING | P.LBL_SERVICING
+        while time.monotonic() < deadline:
+            # READY and no longer asked for (a re-asked key keeps the
+            # READY bit of its previous round until it is claimed)
+            if all(st.labels(k) & P.LBL_READY and not st.labels(k) & busy
+                   for k in keys):
+                done["wall"] = time.perf_counter() - t0
+                break
+            time.sleep(0.01)
+        comp.stop()
+
+    _ask(st, P, waves[0])
+    th = threading.Thread(target=feeder, daemon=True)
+    th.start()
+    comp.run_continuous(idle_timeout_ms=20, stop_after=timeout + 60)
+    th.join(timeout=60)
+    check("wall" in done, f"continuous lane served {comp.stats.completions}"
+          f" of {len(keys)} before the time limit")
+    return len(keys), done["wall"]
+
+
+def _check_no_abort(comp, tokens, n_req, what):
+    """The lane caught no failure (a model error inside run_continuous
+    finalizes its live rows READY and rebuilds the pool, so READY keys
+    alone do not show it) and streamed every request's full budget: the
+    smoke's tokenizer has no EOS and no prompt reaches the window's
+    edge."""
+    check(comp.stats.aborts == 0 and comp.stats.faults == 0,
+          f"{what}: {comp.stats.aborts} lane aborts, {comp.stats.faults} "
+          f"key faults")
+    want = n_req * comp.max_new
+    check(tokens == want, f"{what}: {tokens} tokens streamed, {want} due")
+
+
+def _pool_bytes(cfg, n_blocks, kv_dtype):
+    """The paged pool's bytes from its geometry: values (int4 packs two
+    codes per byte) plus the quantized pools' (n_blocks, KH) f32 scales,
+    k and v, every layer."""
+    per = {"bf16": 2.0, "f32": 4.0, "int8": 1.0, "int4": 0.5}[kv_dtype]
+    vals = n_blocks * cfg.kv_heads * 128 * cfg.head_dim * per
+    scales = n_blocks * cfg.kv_heads * 4 if kv_dtype in ("int8", "int4") \
+        else 0
+    return 2 * cfg.layers * (vals + scales)
+
+
+def _step_costs(model, kv_dtype, ids):
+    """Host wall (the lane is host-bound) of one paged decode step with 8
+    live rows of 32, and of one 64-token suffix stack over a mapped
+    512-token prefix, for one pool storage."""
+    import torch
+
+    cache = model.init_paged(32, kv_dtype=kv_dtype)
+    for r in range(8):
+        model.paged_prefill_row(cache, ids[:500 + r], r)
+    model.paged_decode_chunk(cache, np.ones(32, np.int64), 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        model.paged_decode_chunk(cache, np.ones(32, np.int64), 8)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 24 * 1e3
+    cache.map_shared(9, [int(b) for b in cache.tables[0, :4]])
+    cache.lengths[9] = 512
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.paged_append_prefill(cache, ids[:64], 9)
+    torch.cuda.synchronize()
+    suffix_ms = (time.perf_counter() - t0) * 1e3
+    return step_ms, suffix_ms
+
+
+def phase_continuous(card, timings):
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
+    from libsplinter_tpu_torch.ops import _cuda
+    from libsplinter_tpu_torch.ops.paged_attention import LAUNCHES_BY_QTOKENS
+
+    name = f"/spt-smoke-p{os.getpid()}"
+    st = None
+    try:
+        st = Store.create(name, nslots=512, max_val=8192, vec_dim=0)
+        cfg = DecoderConfig()
+        model = CompletionModel(cfg, seed=0, device="cuda")
+        comp = Completer(st, model=model, tokenizer=_piece_tokenizer(),
+                         template="none", max_new_tokens=128)
+        comp.attach()
+        check(comp.paged_batch_cap == 32 and comp.page_size == 128
+              and comp.inflight_depth == 2 and comp._prefix_enabled,
+              "the lane's defaults changed")
+        wave1, wave2 = _continuous_prompts(np.random.default_rng(9))
+
+        _cuda.LAUNCHES.reset()                       # the main path
+        LAUNCHES_BY_QTOKENS.clear()
+        n, wall = _drive_continuous(comp, st, P, [wave1, wave2])
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        by_q = dict(LAUNCHES_BY_QTOKENS)
+        tokens = comp.stats.tokens
+        cache, pc = comp._paged_cache, comp.prefix_cache
+        check(comp.stats.completions == n == 48,
+              f"continuous lane: {comp.stats.completions} of 48 served")
+        _check_no_abort(comp, tokens, n, "continuous lane")
+        _check_served(st, P, {**wave1, **wave2})
+        check(by_q.get(1, 0) > 0, f"K5 never launched on decode: {by_q}")
+        check(sum(v for k, v in by_q.items() if k > 1) > 0,
+              f"K5 never launched on a suffix prefill: {by_q}")
+        check(pc.stats.hits >= 20, f"prefix hits {pc.stats.hits} < 20")
+        check(pc.stats.cow_copies >= 2, f"COW copies {pc.stats.cow_copies}")
+        check(cache.used_pages == 0 and pc.shared_pages() == 0,
+              f"pages leaked: {cache.used_pages} used after stop")
+        want_mb = round(_pool_bytes(cfg, cache.n_blocks, "bf16") / 1e6, 3)
+        check(cache.n_blocks == 513 and cache.device_mb() == want_mb,
+              f"pool {cache.device_mb()} MB, computed {want_mb} MB")
+        log(f"continuous lane, cold: 48 requests in two waves, {tokens} "
+            f"tokens in {wall:.3f}s = {tokens / wall:.1f} tokens/s "
+            f"(prefill included; 32 rows, page 128, 513 blocks, pool "
+            f"{cache.device_mb():.1f} MB bf16) [{card}] (first reading)")
+        log(f"  prefix cache: {pc.stats.hits} hits, {pc.stats.misses} "
+            f"misses, {pc.stats.hit_tokens} tokens served from the tree, "
+            f"{pc.stats.cow_copies} COW copies; K5 launches by query "
+            f"tokens {by_q}; join backpressure "
+            f"{comp.stats.join_backpressure}, inflight peak "
+            f"{comp.stats.inflight_peak}")
+        timings["continuous"] = {
+            "requests": n, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "prefix_hits": pc.stats.hits,
+            "cow_copies": pc.stats.cow_copies, "k5_by_q_tokens": by_q,
+            "pool_mb": cache.device_mb()}
+
+        # warm: 16 of the requests again, then the same under the
+        # profiler (the lane runs on this thread)
+        warm = {k: t for k, t in list(wave1.items())[:8]
+                + list(wave2.items())[:8]}
+        t_before = comp.stats.tokens
+        _, warm_s = _drive_continuous(comp, st, P, [warm])
+        warm_tok = comp.stats.tokens - t_before
+        _check_no_abort(comp, warm_tok, len(warm), "continuous lane, warm")
+        log(f"continuous lane, warm: 16 requests, {warm_tok} tokens in "
+            f"{warm_s:.3f}s = {warm_tok / warm_s:.1f} tokens/s [{card}]")
+        timings["continuous_warm"] = {"wall_s": warm_s, "tokens": warm_tok,
+                                      "tokens_per_s": warm_tok / warm_s}
+        timings["continuous_profile"] = _profile_drain(
+            lambda: _drive_continuous(comp, st, P, [warm])[0], len(warm),
+            warm_s, card)
+        _check_no_abort(comp, comp.stats.tokens - t_before - warm_tok,
+                        len(warm), "continuous lane, profiled")
+        comp._paged_cache = None
+        torch.cuda.empty_cache()
+
+        for kvd in ("int8", "int4"):
+            qst = Store.create(f"{name}{kvd}", nslots=128, max_val=8192,
+                               vec_dim=0)
+            try:
+                qc = Completer(qst, model=model, tokenizer=_piece_tokenizer(),
+                               template="none", max_new_tokens=128,
+                               kv_dtype=kvd)
+                qc.attach()
+                some = {k: t for k, t in list(wave1.items())[:4]
+                        + list(wave1.items())[-4:]}
+                _cuda.LAUNCHES.reset()
+                LAUNCHES_BY_QTOKENS.clear()
+                _, qwall = _drive_continuous(qc, qst, P, [some])
+                torch.cuda.synchronize()
+                q_by = dict(LAUNCHES_BY_QTOKENS)
+                check(_cuda.LAUNCHES["paged_fwd"] > 0 and q_by.get(1, 0) > 0,
+                      f"{kvd}: K5 never launched on decode: {q_by}")
+                _check_no_abort(qc, qc.stats.tokens, len(some),
+                                f"continuous lane, kv_dtype {kvd}")
+                _check_served(qst, P, some)
+                qcache = qc._paged_cache
+                check(qcache.used_pages == 0, f"{kvd}: pages leaked")
+                want = round(_pool_bytes(cfg, qcache.n_blocks, kvd) / 1e6, 3)
+                ratio = qcache.device_mb() / want_mb
+                check(qcache.device_mb() == want,
+                      f"{kvd} pool {qcache.device_mb()} MB, computed {want}")
+                log(f"continuous lane, kv_dtype {kvd}: 8 requests, "
+                    f"{qc.stats.tokens} tokens in {qwall:.3f}s; pool "
+                    f"{qcache.device_mb():.1f} MB = {ratio:.4f} x bf16 "
+                    f"(values {0.5 if kvd == 'int8' else 0.25} + scales); "
+                    f"{qc.prefix_cache.stats.hits} prefix hits [{card}]")
+                timings[f"continuous_{kvd}"] = {
+                    "wall_s": qwall, "tokens": qc.stats.tokens,
+                    "pool_mb": qcache.device_mb(), "ratio_to_bf16": ratio}
+                qc._paged_cache = None
+            finally:
+                qst.close()
+                Store.unlink(f"{name}{kvd}")
+            torch.cuda.empty_cache()
+
+        # what a decode step and a suffix stack cost per pool storage
+        page_ids = np.asarray(comp._tok.encode(wave1["d/page6"]), np.int32)
+        costs = {}
+        for kvd in ("bf16", "int8", "int4"):
+            costs[kvd] = _step_costs(model, kvd, page_ids)
+            torch.cuda.empty_cache()
+            log(f"  {kvd} pool: paged decode step (8 live rows of 32) "
+                f"{costs[kvd][0]:.1f} ms, 64-token suffix stack "
+                f"{costs[kvd][1]:.1f} ms (host wall) [{card}]")
+        timings["continuous_step_costs"] = costs
+
+        # one paged prefill + one paged decode step (K5) against the
+        # dense prefill + decode_one on the same weights
+        ids = np.asarray(comp._tok.encode(wave1["s/00"]), np.int32)
+        cache = model.init_paged(2)
+        rows = [model.paged_prefill_row(cache, ids, 0), model.prefill(ids)]
+        tok = int(np.argmax(rows[1]))
+        with torch.no_grad():
+            step = model.module(
+                torch.tensor([[tok], [0]], device="cuda"), cache.layers(),
+                0, lengths=torch.from_numpy(cache.lengths).cuda(),
+                tables=torch.from_numpy(cache.tables).cuda())
+        rows += [step[0, 0].float().cpu().numpy(), model.decode_one(tok)]
+        model.reset()
+        cache.reset()
+        cos = [float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+               for a, b in ((rows[0], rows[1]), (rows[2], rows[3]))]
+        check(min(cos) >= 0.999, f"paged vs dense logits cosine {cos}")
+        log(f"paged vs dense on the same bf16 weights ({len(ids)}-token "
+            f"prompt): prefill logits cosine {cos[0]:.6f}, decode step "
+            f"(K5 vs the dense plain attention) cosine {cos[1]:.6f}")
+        timings["continuous_logits"] = {"prefill_cosine": cos[0],
+                                        "step_cosine": cos[1]}
         return counts
     finally:
         if st is not None:
@@ -949,9 +1451,11 @@ def main() -> int:
         phase_flash(results)
         phase_search_kernels(results, 1 << 20)
         phase_causal(results)
+        phase_paged(results)
         counts = phase_lane(_lane_slots(1 << 20), card, timings)
         counts["causal_fwd"] = phase_completion(card,
                                                 timings)["causal_fwd"]
+        counts["paged_fwd"] = phase_continuous(card, timings)["paged_fwd"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -964,14 +1468,16 @@ def main() -> int:
         return 1
     # the record per kernel: its main-path shape (bf16 K1 at B=8 S=2048;
     # K2 at Q=8 k=16 and K3 at Q=8, the searcher's batches of phase 4;
-    # K4 at the bucket-1024 batch of phase 5)
+    # K4 at the bucket-1024 batch of phase 5; K5 at a decode step of the
+    # continuous lane's 32 rows of phase 6)
     main_shape = {"flash_fwd": "B=8 S=2048 H=12 D=64 bf16",
                   "fused_topk": f"N={1 << 20} D={LANE_DIM} Q=8 k=16 f32",
                   "cosine_scores": f"N={1 << 20} D={LANE_DIM} Q=8 f32",
-                  "causal_fwd": CAUSAL_MAIN}
+                  "causal_fwd": CAUSAL_MAIN,
+                  "paged_fwd": PAGED_MAIN}
     kernels = []
     for kname in ("flash_fwd", "fused_topk", "cosine_scores",
-                  "causal_fwd"):
+                  "causal_fwd", "paged_fwd"):
         rec = next(r for r in results[kname]
                    if r["shape"] == main_shape[kname])
         kernels.append({

@@ -24,22 +24,29 @@ label (0x1<<60) and bump; this daemon:
   - cold-start: drains any pre-existing waiting keys
     (splainference.cpp:541-551).
 
-Waiting keys are served in batches of batch_cap through one left-padded
-decode each (models/decoder.py generate_batch; prefill buckets of 512
-tokens and up attend through kernel K4), or one at a time for a custom
-generate_fn.  The label protocol, flush cadence, truncation, ctime
-backfill and __debug lines are the JAX daemon's, so torch and JAX
-daemons share one store.  Not ported yet: the block-paged continuous
-lane and what rides on it, GGUF checkpoints, quantized weights,
-speculative decoding and sharded serving — ``main`` refuses their
-flags instead of serving another way.
+Two lanes serve the same protocol.  run()/run_once() drain waiting
+keys in batches of batch_cap through one left-padded decode each
+(models/decoder.py generate_batch; prefill buckets of 512 tokens and
+up attend through kernel K4), or one at a time for a custom
+generate_fn.  run_continuous() is the block-paged lane (--continuous):
+requests join and leave a live batch of 32 rows at chunk edges over a
+PagedKVCache, a radix prefix cache (engine/prefix_cache.py) maps shared
+prompt pages instead of re-prefilling them, and every decode step and
+suffix prefill attends through kernel K5.  The label protocol, flush
+cadence, truncation, ctime backfill and __debug lines are the JAX
+daemon's, so torch and JAX daemons share one store.  Not ported yet:
+the KV tier, the disaggregated prefill/decode lanes, GGUF checkpoints,
+quantized weights, speculative decoding and sharded serving — ``main``
+refuses their flags instead of serving another way.
 """
 from __future__ import annotations
 
 import dataclasses
 import errno
+import itertools
 import logging
 import time
+from collections import deque
 from typing import Callable, Iterator
 
 import numpy as np
@@ -54,7 +61,8 @@ from ..utils.faults import fault
 from ..utils.trace import tracer
 from . import protocol as P
 from .qos import (AdmissionController, TenantLedger, WaitingRow,
-                  parse_tenant_weights, prune_idle_counters)
+                  parse_tenant_quotas, parse_tenant_weights,
+                  prune_idle_counters)
 
 log = logging.getLogger("libsplinter_tpu_torch.completer")
 
@@ -128,10 +136,21 @@ class CompleterStats:
     vanished: int = 0                 # keys deleted mid-request
     faults: int = 0                   # per-key failures the firewall ate
     reclaimed: int = 0                # stranded SERVICING rows re-queued
+    join_backpressure: int = 0        # admissions deferred: pool full
     # -- multi-tenant QoS (engine/qos.py) ----------------------------
     deadline_expired: int = 0         # fast-failed: deadline passed
     shed: int = 0                     # typed overloaded + retry hint
     deferred: int = 0                 # held for a later drain/chunk
+    # -- the continuous lane: un-awaited decode chunks held while the
+    # host emits/admits, and rows retired at a chunk edge because their
+    # deadline passed mid-decode --------------------------------------
+    inflight_peak: int = 0
+    killed_mid_decode: int = 0
+    # model failures the lane caught: live rows finalized with what they
+    # had streamed and the pool rebuilt (abort_all), or an in-flight
+    # chunk that failed to resolve at stop
+    aborts: int = 0
+
 
 class Completer:
     """Drive with run() (blocking loop), run_once() (single drain), or
@@ -150,14 +169,24 @@ class Completer:
                  template: str = "chatml",
                  group: int = P.GROUP_INFER,
                  batch_cap: int | None = None,
+                 page_size: int = 128,
+                 pool_pages: int | None = None,
+                 kv_dtype: str | None = None,
+                 inflight_depth: int | None = None,
                  queue_high_water: int | None = None,
                  retry_after_ms: int | None = None,
                  tenant_weights: dict[int, float] | None = None,
+                 prefix_cache: bool = True,
+                 prefix_cache_pages: int | None = None,
+                 prefix_quotas: dict[int, int] | None = None,
+                 prefix_default_quota: int | None = None,
                  replica: int = 0,
                  device=None):
         """model: a CompletionModel; when neither it nor generate_fn is
         given, a seeded-random one is built on `device` ("cuda" by
-        default, or "cpu")."""
+        default, or "cpu").  page_size, pool_pages, kv_dtype,
+        inflight_depth and the prefix_* arguments shape the continuous
+        lane (run_continuous)."""
         self.store = store
         # elastic lanes (protocol.StripeView): replica r drains only
         # its own slot-index stripe; stranded-SERVICING reclaim is
@@ -171,8 +200,43 @@ class Completer:
         self.max_new = max_new_tokens
         self.flush_tokens = flush_tokens
         self.rebid_tokens = rebid_tokens
-        # a wider dense batch multiplies (B, max_len, KH, D) cache memory
+        # per-lane defaults: a wider dense batch multiplies (B, max_len,
+        # KH, D) cache memory, while the paged pool's memory scales with
+        # live tokens; an explicit batch_cap applies to both lanes
         self.batch_cap = 8 if batch_cap is None else batch_cap
+        self.paged_batch_cap = 32 if batch_cap is None else batch_cap
+        self.page_size = page_size
+        self.pool_pages = pool_pages
+        # paged-pool storage (--kv-dtype): int8 halves the cache bytes
+        # per token against bf16 (per-page scales, dequantized inside
+        # K5), int4 packs two codes per byte (a quarter); None keeps the
+        # model's activation dtype
+        if kv_dtype not in (None, "bf16", "f32", "int8", "int4"):
+            raise ValueError(
+                f"unknown kv_dtype {kv_dtype!r} (bf16 | f32 | int8 | int4)")
+        self.kv_dtype = kv_dtype
+        # the continuous lane's chunk pipeline depth: dispatch chunk K,
+        # then collect the OLDEST while the newest computes (the token
+        # hand-off between chunks stays on the device); 1 = collect each
+        # chunk before dispatching the next
+        self.inflight_depth = (2 if inflight_depth is None
+                               else max(1, inflight_depth))
+        self._paged_cache = None
+        # join-backpressure memo, idx -> (slot epoch, pages needed):
+        # instance state so the heartbeat can publish its size and the
+        # sweep can bound it
+        self._bp_memo: dict[int, tuple[int, int]] = {}
+        self._bp_memo_cap = 4096
+        # cross-request prefix sharing over the paged pool, built with
+        # the pool (engine/prefix_cache.py)
+        self._prefix_enabled = bool(prefix_cache)
+        self._prefix_cache_pages = prefix_cache_pages
+        self._prefix_quotas = dict(prefix_quotas or {})
+        self._prefix_default_quota = prefix_default_quota
+        self.prefix_cache = None
+        # pool-occupancy high-water marks (chunk edges + heartbeats)
+        self._pages_used_peak = 0
+        self._pool_mb_peak = 0.0
         # multi-tenant QoS (engine/qos.py): every drain orders the
         # waiting keys fairly across tenants (stride credit persists,
         # so a starved tenant leads the next cycle); queue_high_water
@@ -406,6 +470,47 @@ class Completer:
         self.stats.deferred += len(plan.deferred)
         self._had_deferred = bool(plan.deferred)
         return [row.item for row in plan.admit]
+
+    def _sweep_bp_memo(self) -> int:
+        """Bound the join-backpressure memo on the heartbeat cadence:
+        evict entries whose slot epoch moved on or whose request label
+        is gone, then enforce the hard cap (_bound_bp_memo)."""
+        st = self.store
+        dropped = 0
+        for idx, (e, _need) in list(self._bp_memo.items()):
+            try:
+                if st.epoch_at(idx) != e or \
+                        not st.labels_at(idx) & P.LBL_INFER_REQ:
+                    del self._bp_memo[idx]
+                    dropped += 1
+            except (KeyError, OSError):
+                self._bp_memo.pop(idx, None)
+                dropped += 1
+        return dropped + self._bound_bp_memo()
+
+    def _bound_bp_memo(self) -> int:
+        """The memo's hard size cap, evicting stale slot epochs first
+        (a live entry is a denied request the memo keeps cheap), then in
+        insertion order."""
+        over = len(self._bp_memo) - self._bp_memo_cap
+        if over <= 0:
+            return 0
+        st = self.store
+        dropped = 0
+        for idx, (e, _need) in list(self._bp_memo.items()):
+            if dropped >= over:
+                break
+            try:
+                stale = st.epoch_at(idx) != e
+            except (KeyError, OSError):
+                stale = True
+            if stale:
+                self._bp_memo.pop(idx, None)
+                dropped += 1
+        while len(self._bp_memo) > self._bp_memo_cap:
+            self._bp_memo.pop(next(iter(self._bp_memo)))
+            dropped += 1
+        return dropped
 
     def _debug(self, msg: str) -> None:
         """Append to the shared debug log key
@@ -800,6 +905,502 @@ class Completer:
                 pass
             return "full"
 
+    # -- continuous batching (block-paged) --------------------------------
+
+    def _paged_ok(self) -> bool:
+        """True when the model serves the block-paged lane
+        (paged_supported) with a usable bucket geometry."""
+        m = getattr(self, "_model", None)
+        return (m is not None
+                and getattr(m, "paged_supported", False)
+                and self.paged_batch_cap >= 2
+                and self._batched_budget() is not None)
+
+    def _ensure_paged_cache(self):
+        if self._paged_cache is None:
+            self._paged_cache = self._model.init_paged(
+                self.paged_batch_cap, page=self.page_size,
+                pool_pages=self.pool_pages, kv_dtype=self.kv_dtype)
+            cache = self._paged_cache
+            if self._prefix_enabled:
+                # (re)bind the radix tree to THIS pool: a rebuilt pool
+                # (abort recovery) invalidates every cached page id, so
+                # attach() empties the tree
+                if self.prefix_cache is None:
+                    from .prefix_cache import PrefixCache
+                    self.prefix_cache = PrefixCache(
+                        self.page_size,
+                        max_pages=self._prefix_cache_pages,
+                        tenant_quotas=self._prefix_quotas,
+                        default_quota=self._prefix_default_quota)
+                self.prefix_cache.attach(cache)
+                cache.prefix_cache = self.prefix_cache
+        return self._paged_cache
+
+    def warmup_paged(self) -> None:
+        """Run the continuous lane's whole program set against the pool
+        geometry run_continuous will serve with, so compile_count stays
+        flat across join/finish/join cycles afterwards."""
+        if not self._paged_ok():
+            return
+        cache = self._ensure_paged_cache()
+        self._model.warmup_paged(cache, chunk=max(1, self.flush_tokens),
+                                 max_prompt=self._batched_budget())
+
+    def run_continuous(self, *, idle_timeout_ms: int = 100,
+                       stop_after: float | None = None) -> None:
+        """Continuous batched serving over the block-paged KV pool:
+        requests join and leave the live batch at chunk boundaries.
+
+        paged_batch_cap rows decode together, each over its OWN
+        positions 0..len-1 in pages of a global pool: a joiner prefills
+        its full prompt into freshly allocated pages at any time (only
+        its uncached suffix when the prefix cache maps a shared
+        prefix), a finished row's pages return to the pool at once, and
+        a row ends at ITS window edge.  Admission reserves each request's
+        worst case (prompt + max_new rounded up to a chunk, capped at the
+        window); a request the pool cannot cover stays WAITING
+        (join_backpressure) — backpressure, never a mid-decode strand.
+        Up to inflight_depth decode chunks fly un-awaited, the token
+        hand-off between them staying on the device.  Models without the
+        paged surface, and window-only bucket geometries, fall back to
+        run()."""
+        if not self._paged_ok():
+            return self.run(idle_timeout_ms=idle_timeout_ms,
+                            stop_after=stop_after)
+        m = self._model
+        st = self.store
+        tok_izer = self._tok
+        B = self.paged_batch_cap
+        cfg = m.cfg
+        cache = self._ensure_paged_cache()
+        self._running = True
+        deadline = (time.monotonic() + stop_after) if stop_after else None
+        last = st.signal_count(self.group)
+        next_beat = time.monotonic() + 2.0
+        self.publish_stats()          # the attach-complete signal
+
+        rows: list[dict | None] = [None] * B
+        # K-deep chunk window: each entry snapshots (row, serial) of the
+        # rows live at its dispatch, so a lagged collect never emits into
+        # a row a later admission re-seated.  Pages a stale in-flight
+        # chunk touches are still the finished row's or are overwritten
+        # by the joiner's commit scatter, which the device runs after
+        # it: every pool write and K5 launch is on the one current
+        # stream, in dispatch order.
+        window: deque = deque()       # (PendingChunk, [(row, serial)])
+        serial = itertools.count()
+        carry = None                  # device-side last-token column
+        # host-fed first tokens (a joiner's prefill sample); -1 = carry
+        fresh = np.full((B,), -1, np.int64)
+        rebid_due = 0
+        step = max(1, self.flush_tokens)   # decode chunk granularity
+        bp_memo = self._bp_memo
+        bp_memo.clear()
+
+        def worst_len(n_ids: int) -> int:
+            """Worst-case cache length of an admitted prompt: the first
+            output token comes from the prefill sample, the remaining
+            max_new - 1 in whole `step`-token chunks (the last chunk can
+            run up to step - 1 tokens past the budget)."""
+            chunks = (-(-(self.max_new - 1) // step)
+                      if self.max_new > 1 else 0)
+            return min(n_ids + chunks * step, cfg.max_len)
+
+        def span(row: dict | None, name: str, ms: float) -> None:
+            tracer.record(f"infer.{name}", ms)
+            if row is not None and row.get("spans") is not None:
+                row["spans"].append([name, round(ms, 3)])
+
+        def admit() -> int:
+            """Fill free rows from waiting keys; every admission is a
+            join that prefills right here, batch empty or mid-decode."""
+            free = [r for r in range(B) if rows[r] is None]
+            if not free:
+                return 0
+            self.stripes.refresh()    # admission IS this lane's drain
+            waiting = [i for i in st.enumerate_indices(P.LBL_INFER_REQ)
+                       if self.stripes.owns(int(i))]
+            if not waiting:
+                return 0
+            # pool-backpressured rows stay out of the fairness plan
+            # (they are not admissible this cycle); an expired one is
+            # rejected typed right here
+            plannable = []
+            now_wall = time.time()
+            for w_idx in waiting:
+                memo = bp_memo.get(w_idx)
+                if memo is not None \
+                        and memo[0] == st.epoch_at(w_idx) \
+                        and memo[1] > cache.available_pages:
+                    tenant, dl = self._qos_meta(w_idx)
+                    if dl is not None and dl <= now_wall:
+                        if self._terminal_reject(
+                                w_idx, P.DEADLINE_EXPIRED_DIAGNOSTIC,
+                                "deadline_expired", tenant):
+                            bp_memo.pop(w_idx, None)
+                    continue
+                plannable.append(w_idx)
+            n = 0
+            traced = tracer.enabled
+            pc = cache.prefix_cache
+            for idx in self._admit_waiting(plannable, len(free)):
+                if not free:
+                    break
+                e = st.epoch_at(idx)
+                memo = bp_memo.get(idx)
+                if memo is not None and memo[0] == e:
+                    if memo[1] > cache.available_pages:
+                        continue      # still too big: skip the render
+                    del bp_memo[idx]
+                # peek BEFORE claiming: a backpressured request stays
+                # WAITING untouched
+                peek = self._read_rendered(idx)
+                if peek is None:
+                    continue
+                ids = self._clip_context(tok_izer.encode(peek[1]),
+                                         bucketed=True)
+                # radix walk BEFORE the page math: hit pages need no
+                # free page, so the reservation counts only the uncached
+                # suffix, plus one page for the copy-on-write a fully
+                # cached prompt's replay append takes
+                hit_bids: list[int] = []
+                match = 0
+                if pc is not None and len(ids):
+                    hit_bids, match = pc.lookup(ids)
+                    if match == len(ids) and len(ids) < 2:
+                        # a fully covered 1-token prompt would enter at
+                        # lengths 0, the dead-row sentinel: a miss
+                        hit_bids, match = [], 0
+                full_cover = bool(hit_bids) and match == len(ids)
+                reserve = 0
+                if len(ids):
+                    reserve = min(worst_len(len(ids))
+                                  + (step if full_cover else 0),
+                                  cfg.max_len)
+                    need = (cache.pages_needed(reserve) - len(hit_bids)
+                            + (1 if full_cover else 0))
+                    # zero-ref hit pages count as reclaimable supply, but
+                    # map_shared is about to pin them
+                    pinned = sum(1 for b in hit_bids
+                                 if cache.refcounts[b] == 0)
+                    if need > cache.available_pages - pinned:
+                        self.stats.join_backpressure += 1
+                        bp_memo[idx] = (e, need + pinned)
+                        self._bound_bp_memo()
+                        continue      # pool full: next cycle retries
+                tenant, _dl = self._qos_meta(idx)
+                prep = self._prepare(idx, peek=peek)
+                if prep is None:
+                    continue
+                key, rendered, t0, stamp = prep
+                if not len(ids):
+                    self._finalize(key, t0, 0, False)
+                    continue
+                r = free.pop(0)
+                rows[r] = {"key": key, "t0": t0, "n_tok": 0,
+                           "pending": b"", "remaining": self.max_new,
+                           "stamp": stamp,
+                           # retained for the chunk-edge deadline abort
+                           "deadline": _dl, "tenant": tenant,
+                           # the lagged-collect guard, and the decode
+                           # steps still dispatchable for the budget
+                           "serial": next(serial),
+                           "disp_left": self.max_new - 1,
+                           "spans": ([] if traced and stamp is not None
+                                     else None),
+                           "wall0": time.perf_counter()}
+                ta = time.perf_counter()
+                if hit_bids:
+                    fault("completer.prefix_map")
+                    cache.map_shared(r, hit_bids)
+                    cache.lengths[r] = (len(ids) - 1 if full_cover
+                                        else match)
+                    pc.commit_hit(ids, match)
+                    pc.stats.bytes_saved += \
+                        match * cache.kv_bytes_per_token()
+                    if tenant:
+                        self.tenants.bump(tenant, "prefix_hit_pages",
+                                          len(hit_bids))
+                elif pc is not None and len(ids):
+                    pc.note_miss()
+                suffix = ids[match:]
+                if not cache.ensure(r, reserve):
+                    # defensive: the pinned-aware gate above makes this
+                    # unreachable; a seated row WITHOUT its reservation
+                    # would strand mid-decode, so re-queue it
+                    cache.free_row(r)
+                    rows[r] = None
+                    free.insert(0, r)
+                    self._live_spans.pop(key, None)
+                    self.stats.join_backpressure += 1
+                    self._requeue_failed([idx])
+                    continue
+                if traced and hit_bids:
+                    span(rows[r], "prefix_hit",
+                         (time.perf_counter() - ta) * 1e3)
+                if cache.quantized and suffix:
+                    fault("completer.kv_quant_commit")
+                if suffix:
+                    ta = time.perf_counter()
+                    if hit_bids:
+                        # the uncached tail only, attending the mapped
+                        # prefix through K5's multi-query stack
+                        logits = m.paged_append_prefill(
+                            cache, np.asarray(suffix, np.int32), r)
+                    else:
+                        logits = m.paged_prefill_row(
+                            cache, np.asarray(ids, np.int32), r)
+                    tb = time.perf_counter()
+                    if pc is not None:
+                        # the committed full prompt pages join the tree
+                        # now, donor still live
+                        ins = pc.insert(ids, cache, r, tenant)
+                        if ins and tenant:
+                            self.tenants.bump(
+                                tenant, "prefix_cached_pages", ins)
+                    t = int(m.sample(logits))
+                    if traced:
+                        tc = time.perf_counter()
+                        span(rows[r], "join", (tb - ta) * 1e3)
+                        span(rows[r], "sample", (tc - tb) * 1e3)
+                    emit(r, t)
+                    if rows[r] is not None:
+                        fresh[r] = t  # read by the next dispatch
+                else:
+                    # FULLY cached prompt: no prefill.  The row enters at
+                    # lengths = P-1 and the next chunk replays the last
+                    # prompt token into the shared tail page's private
+                    # copy, taken EAGERLY here (the admission counted
+                    # that page; a later admission must not consume it)
+                    m._cow_fixups(cache)
+                    rows[r]["disp_left"] = self.max_new
+                    fresh[r] = int(ids[-1])
+                n += 1
+            return n
+
+        def emit(r: int, t: int) -> None:
+            """One sampled token for row r: eos / flush / budget."""
+            row = rows[r]
+            if t == tok_izer.eos_id:
+                finish(r)
+                return
+            row["pending"] += tok_izer.token_to_piece(t)
+            row["n_tok"] += 1
+            row["remaining"] -= 1
+            boundary = row["pending"].endswith((b" ", b"\n", b"\t"))
+            if boundary or row["n_tok"] % self.flush_tokens == 0:
+                tf = time.perf_counter()
+                res = self._flush(row["key"], row["pending"])
+                if tracer.enabled:
+                    span(row, "flush", (time.perf_counter() - tf) * 1e3)
+                row["pending"] = b""
+                if res != "ok":
+                    finish(r, truncated=res == "full",
+                           vanished=res == "gone")
+                    return
+            if row["remaining"] <= 0:
+                finish(r)
+
+        def finish(r: int, truncated: bool = False,
+                   vanished: bool = False) -> None:
+            row = rows[r]
+            if row["pending"] and not truncated and not vanished:
+                res = self._flush(row["key"], row["pending"])
+                truncated = res == "full"
+                vanished = res == "gone"
+            stages = None
+            if row.get("spans"):
+                stages = {}
+                for name, ms in row["spans"]:
+                    stages[name] = stages.get(name, 0.0) + ms
+            self._finalize(row["key"], row["t0"], row["n_tok"],
+                           truncated, vanished, stages=stages)
+            if row.get("stamp") is not None \
+                    and row.get("spans") is not None:
+                tid, ts = row["stamp"]
+                wall = ((time.time() - ts) * 1e3 if ts > 0 else
+                        (time.perf_counter() - row["wall0"]) * 1e3)
+                self.recorder.record(tid, row["key"], wall, row["spans"])
+            cache.free_row(r)         # pages back to the pool NOW
+            rows[r] = None
+            fresh[r] = -1
+
+        def kill_expired() -> int:
+            """Chunk-edge deadline aborts: a live row whose deadline
+            passed is retired with the typed DEADLINE_EXPIRED record and
+            its pages freed at once; lagged in-flight chunks are
+            serial-guarded, so its tokens evaporate."""
+            now_wall = time.time()
+            n = 0
+            for r in range(B):
+                row = rows[r]
+                if row is None or not row.get("deadline") \
+                        or row["deadline"] > now_wall:
+                    continue
+                key = row["key"]
+                span_rec = self._live_spans.pop(key, None)
+                try:
+                    st.label_clear(key, P.LBL_SERVICING
+                                   | P.LBL_DECODE_READY)
+                    st.set(key, P.DEADLINE_EXPIRED_DIAGNOSTIC)
+                    st.label_or(key, P.LBL_READY)
+                    st.bump(key)
+                except (KeyError, OSError):
+                    pass
+                self.spans.commit(span_rec, status=P.ERR_DEADLINE)
+                cache.free_row(r)
+                rows[r] = None
+                fresh[r] = -1
+                self.stats.killed_mid_decode += 1
+                self.stats.deadline_expired += 1
+                if row.get("tenant"):
+                    self.tenants.bump(row["tenant"], "deadline_expired")
+                n += 1
+            return n
+
+        def collect(entry) -> None:
+            """Resolve one in-flight chunk (its one device->host copy)
+            and emit its columns to the rows live at ITS dispatch,
+            serial-guarded."""
+            pend, live = entry
+            tc0 = time.perf_counter()
+            blk = pend.block()
+            used = cache.used_pages
+            if used > self._pages_used_peak:
+                self._pages_used_peak = used
+            if tracer.enabled:
+                ms = (time.perf_counter() - tc0) * 1e3
+                tracer.record("infer.collect", ms)
+                for r, ser in live:
+                    row = rows[r]
+                    if row is not None and row["serial"] == ser \
+                            and row.get("spans") is not None:
+                        row["spans"].append(["collect", round(ms, 3)])
+            for c in range(pend.n):
+                for r, ser in live:
+                    row = rows[r]
+                    if row is not None and row["serial"] == ser:
+                        emit(r, int(blk[r, c]))
+
+        def abort_all(reason: str) -> None:
+            """A model failure must not wedge WAITING/SERVICING: every
+            live row finalizes with what it streamed and the pool is
+            rebuilt (a failure mid-program may have left it half
+            written)."""
+            nonlocal cache, carry
+            self._debug(f"continuous batch aborted: {reason}")
+            self.stats.aborts += 1
+            window.clear()
+            carry = None
+            fresh[:] = -1
+            for r in range(B):
+                if rows[r] is not None:
+                    finish(r)
+            self._paged_cache = None
+            cache = self._ensure_paged_cache()
+            bp_memo.clear()
+
+        try:
+            while self._running:
+                now = time.monotonic()
+                if deadline and now > deadline:
+                    break
+                if now >= next_beat:
+                    next_beat = now + 2.0
+                    self._sweep_bp_memo()
+                    self.publish_stats()
+
+                try:
+                    if all(r is None for r in rows):
+                        # nothing live: retire in-flight chunks (serial
+                        # guards drop every column), reset the carry
+                        while window:
+                            collect(window.popleft())
+                        carry = None
+                        if admit() == 0:
+                            if self.replica \
+                                    and self.stripes.poll_retired():
+                                self._debug("replica destriped — retiring")
+                                break
+                            got = st.signal_wait(
+                                self.group, last,
+                                timeout_ms=idle_timeout_ms)
+                            if got is not None:
+                                last = got
+                                self.stats.wakes += 1
+                        continue
+
+                    if any(r is None for r in rows):
+                        admit()       # joiners enter at ANY time
+
+                    kill_expired()
+
+                    # rows without window room for the next chunk, or
+                    # whose whole budget is in flight, are not
+                    # dispatched again: collect oldest-first until they
+                    # finish, then force any survivor (a true window-
+                    # edge row) closed
+                    edge = [r for r in range(B) if rows[r] is not None
+                            and (int(cache.lengths[r]) + step
+                                 > cfg.max_len
+                                 or rows[r]["disp_left"] <= 0)]
+                    if edge:
+                        while window and any(rows[r] is not None
+                                             for r in edge):
+                            collect(window.popleft())
+                        for r in edge:
+                            if rows[r] is not None:
+                                finish(r)
+                    if all(r is None for r in rows):
+                        continue
+
+                    td = time.perf_counter()
+                    pend = m.paged_decode_chunk_async(
+                        cache, fresh, step, carry=carry)
+                    live = [(r, rows[r]["serial"]) for r in range(B)
+                            if rows[r] is not None]
+                    if tracer.enabled:
+                        ms = (time.perf_counter() - td) * 1e3
+                        tracer.record("infer.decode", ms)
+                        for r, _ in live:
+                            if rows[r].get("spans") is not None:
+                                rows[r]["spans"].append(
+                                    ["decode", round(ms, 3)])
+                    carry = pend.last
+                    fresh[:] = -1
+                    for r, _ in live:
+                        rows[r]["disp_left"] -= step
+                    window.append((pend, live))
+                    self.stats.inflight_peak = max(
+                        self.stats.inflight_peak, len(window))
+                    rebid_due += step
+                    if self.rebid_tokens and rebid_due >= self.rebid_tokens:
+                        rebid_due = 0
+                        self._rebid()
+                    # collect the oldest only once inflight_depth chunks
+                    # are un-awaited: its emit/flush host work overlaps
+                    # the newest chunk's device compute
+                    while len(window) >= self.inflight_depth:
+                        collect(window.popleft())
+                except Exception as ex:
+                    abort_all(str(ex))
+        finally:
+            # stop()/stop_after mid-batch: deliver in-flight tokens,
+            # strand no key in SERVICING, return the WHOLE pool (cached
+            # pages included: the zero-leaked-pages contract)
+            try:
+                while window:
+                    collect(window.popleft())
+            except Exception:
+                self.stats.aborts += 1    # a poisoned chunk: keep what landed
+            for r in range(B):
+                if rows[r] is not None:
+                    finish(r)
+            cache.reset()
+            if self.prefix_cache is not None:
+                self.prefix_cache.reclaim(cache.n_blocks)
+
     # -- drain loop --------------------------------------------------------
 
     def run_once(self) -> int:
@@ -872,8 +1473,9 @@ class Completer:
         reference's __debug chatter; sidecar group-63 watch surfaces
         it).  SPTPU_TRACE=1 adds histogram-sourced INFER_STAGES
         quantiles, recorder accounting, and the slow log.  The fields
-        are the JAX daemon's dense-lane ones; the paged, speculative
-        and sharded gauges arrive with those lanes."""
+        are the JAX daemon's dense- and continuous-lane ones (the
+        speculative, sharded and KV-tier gauges arrive with those
+        lanes)."""
         self.spans.flush()            # heartbeat cadence, off the
         payload = dataclasses.asdict(self.stats)      # wake path
         payload["spans_obs"] = self.spans.counters()
@@ -881,6 +1483,11 @@ class Completer:
         if self.replica or self.stripes.epoch:
             payload["replica"] = self.replica
             payload["stripe"] = self.stripes.snapshot()
+        cache = self._paged_cache
+        if not self.stats.killed_mid_decode and cache is None:
+            payload.pop("killed_mid_decode", None)   # dense lane
+        payload["inflight_depth"] = self.inflight_depth
+        payload["bp_memo"] = len(self._bp_memo)
         if self.qos.high_water is not None:
             payload["qos"] = {
                 "queue_high_water": self.qos.high_water,
@@ -891,6 +1498,41 @@ class Completer:
             payload["tenants"] = tenants
         prune_idle_counters(
             payload, bool(self.qos.high_water is not None or tenants))
+        if not self._bp_memo and cache is None:
+            payload.pop("bp_memo", None)             # dense lane
+        if cache is not None:
+            # pool gauges (sptpu_completer_pages_{free,used})
+            payload["pages_free"] = cache.free_pages
+            payload["pages_used"] = cache.used_pages
+            payload["live_tokens"] = cache.live_tokens()
+            self._pages_used_peak = max(self._pages_used_peak,
+                                        cache.used_pages)
+            payload["pages_used_peak"] = self._pages_used_peak
+        pc = self.prefix_cache
+        if pc is not None:
+            s = pc.stats
+            payload["prefix_hits"] = s.hits
+            payload["prefix_misses"] = s.misses
+            payload["prefix_hit_tokens"] = s.hit_tokens
+            payload["prefix_evictions"] = s.evictions
+            payload["prefix_shared_pages"] = pc.shared_pages()
+            payload["prefix_evictable"] = pc.evictable_count()
+            payload["prefix_cow_copies"] = s.cow_copies
+            payload["prefix_bytes_saved"] = s.bytes_saved
+            for t, pages in pc.tenant_pages().items():
+                # per-tenant cache residency beside the QoS counters;
+                # untagged traffic (tenant 0) never creates the section
+                if t:
+                    tenants.setdefault(str(t), {})["prefix_pages"] = pages
+            if tenants and "tenants" not in payload:
+                payload["tenants"] = tenants
+        if cache is not None:
+            # the pool's storage dtype and the bytes of its device
+            # tensors (values + scales)
+            payload["kv_dtype"] = cache.kv_dtype
+            payload["pool_mb"] = cache.device_mb()
+            self._pool_mb_peak = max(self._pool_mb_peak, payload["pool_mb"])
+            payload["pool_mb_peak"] = round(self._pool_mb_peak, 3)
         if faults.armed():
             payload["faults"] = faults.stats()
         payload["compile_events"] = DEVTIME.compile_events(self.LANE)
@@ -942,6 +1584,7 @@ class Completer:
                 elif do_sweep:
                     self.run_once()
                 if do_sweep:
+                    self._sweep_bp_memo()
                     self.publish_stats()
                     if self.replica and self.stripes.poll_retired():
                         # scale-down drain: the drains above finished
@@ -964,11 +1607,12 @@ class Completer:
 # flags of the JAX daemon whose lanes the port does not have yet: each
 # refuses to start rather than serve another way (see ROADMAP.md)
 _NOT_PORTED = (
-    ("continuous", "--continuous",
-     "Queue A item 6: the block-paged continuous lane, kernel K5"),
     ("phase", "--phase prefill|decode",
      "Queue A item 6: the disaggregated prefill/decode lanes"),
-    ("kv_dtype", "--kv-dtype", "Queue A item 6: the paged KV pools"),
+    ("kv_tier_pages", "--kv-tier-pages",
+     "Queue A item 6: the host-DRAM KV tier (engine/kv_tier.py)"),
+    ("kv_tier_persist", "--kv-tier-persist",
+     "Queue A item 6: the host-DRAM KV tier (engine/kv_tier.py)"),
     ("quantized", "--quantized",
      "Queue A item 8: int8 weight residency (models/quant.py)"),
     ("weights_int8", "--weights-int8 / --weights int8",
@@ -1040,12 +1684,51 @@ def main(argv: list[str] | None = None) -> int:
                     help="context window / KV-cache length (default "
                          "2048)")
     ap.add_argument("--batch-cap", type=int, default=None,
-                    help="serve up to this many waiting keys in one "
-                         "left-padded batch (1 = serial, the "
-                         "reference's cadence; default 8)")
+                    help="serve up to this many waiting keys "
+                         "concurrently (1 = serial, the reference's "
+                         "cadence).  Default: 32 with --continuous (the "
+                         "paged pool's memory scales with live tokens), "
+                         "8 otherwise (a wider dense batch multiplies "
+                         "B x max_len cache memory)")
     ap.add_argument("--warmup", action="store_true",
                     help="run every prefill bucket and the decode "
-                         "shapes once before serving")
+                         "shapes once before serving (with "
+                         "--continuous: the paged program set)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: requests join/leave the "
+                         "live batch at chunk boundaries over the "
+                         "block-paged KV pool (run_continuous; kernel K5 "
+                         "on every decode step)")
+    ap.add_argument("--page-size", type=int, default=128,
+                    help="KV pool page size in tokens (continuous lane)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="total pages in the paged KV pool (default: "
+                         "batch-cap full windows; admission "
+                         "backpressures when the pool is full)")
+    ap.add_argument("--kv-dtype", choices=("bf16", "f32", "int8", "int4"),
+                    default=None,
+                    help="paged KV pool storage (continuous lane; "
+                         "default: the activation dtype).  int8 keeps "
+                         "per-page per-kv-head scales and halves the "
+                         "cache bytes per token against bf16; int4 packs "
+                         "two codes per byte (a quarter); K5 dequantizes "
+                         "inside its page loop")
+    ap.add_argument("--inflight-depth", type=int, default=None,
+                    help="continuous lane: decode chunks in flight "
+                         "before the oldest is collected (default 2; 1 "
+                         "collects every chunk before the next)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request prefix sharing on the "
+                         "continuous lane (default on: shared prompt "
+                         "prefixes map refcounted pool pages instead of "
+                         "re-prefilling — engine/prefix_cache.py)")
+    ap.add_argument("--prefix-cache-pages", type=int, default=None,
+                    help="global cap on pool pages the prefix cache may "
+                         "retain (default: unlimited; zero-ref pages are "
+                         "reclaimed LRU-first when the pool needs them)")
+    ap.add_argument("--prefix-quota", default=None,
+                    help="per-tenant prefix-cache page quotas, "
+                         "TENANT:PAGES[,TENANT:PAGES...]")
     ap.add_argument("--queue-high-water", type=int, default=None,
                     help="multi-tenant QoS: max waiting backlog — "
                          "overflow is claimed and READY-flipped with "
@@ -1059,12 +1742,15 @@ def main(argv: list[str] | None = None) -> int:
                          "TENANT:W[,TENANT:W...] (unlisted weigh 1)")
     not_ported = ap.add_argument_group(
         "not yet ported (the JAX daemon's; each refuses to start)")
-    for flag in ("--continuous", "--quantized", "--weights-int8"):
+    for flag in ("--quantized", "--weights-int8"):
         not_ported.add_argument(flag, action="store_true")
     for flag in ("--tp", "--ep", "--draft-layers"):
         not_ported.add_argument(flag, type=int, default=None)
-    for flag in ("--phase", "--kv-dtype", "--draft-weights"):
+    for flag in ("--phase", "--draft-weights"):
         not_ported.add_argument(flag, default=None)
+    not_ported.add_argument("--kv-tier-pages", type=int, default=0)
+    not_ported.add_argument("--kv-tier-persist", nargs="?", const="auto",
+                            default=None)
     args = ap.parse_args(argv)
     _refuse_not_ported(args)
 
@@ -1090,25 +1776,38 @@ def main(argv: list[str] | None = None) -> int:
     comp = Completer(store, model=model,
                      max_new_tokens=args.max_new_tokens,
                      template=template, batch_cap=args.batch_cap,
+                     page_size=args.page_size, pool_pages=args.pool_pages,
+                     kv_dtype=args.kv_dtype,
+                     inflight_depth=args.inflight_depth,
                      queue_high_water=args.queue_high_water,
                      retry_after_ms=args.retry_after_ms,
                      tenant_weights=parse_tenant_weights(
                          args.tenant_weights),
+                     prefix_cache=not args.no_prefix_cache,
+                     prefix_cache_pages=args.prefix_cache_pages,
+                     prefix_quotas=parse_tenant_quotas(args.prefix_quota),
                      replica=args.replica)
     comp.attach()
     if args.warmup:
         t0 = time.monotonic()
-        kw = {}
-        if comp.batch_cap > 1 and comp._batched_budget() is not None:
-            kw["batch"] = comp.batch_cap    # the dense batched shapes
-        model.warmup(chunk=comp.flush_tokens, **kw)
+        if args.continuous and comp._paged_ok():
+            # the continuous lane only ever runs the paged program set
+            comp.warmup_paged()
+        else:
+            kw = {}
+            if comp.batch_cap > 1 and comp._batched_budget() is not None:
+                kw["batch"] = comp.batch_cap    # the dense batched shapes
+            model.warmup(chunk=comp.flush_tokens, **kw)
         log.info("warmup ran in %.1fs", time.monotonic() - t0)
     if args.oneshot:
         n = comp.run_once()
         log.info("oneshot serviced %d completions", n)
         return 0
     try:
-        comp.run(idle_timeout_ms=args.idle_timeout_ms)
+        if args.continuous:
+            comp.run_continuous(idle_timeout_ms=args.idle_timeout_ms)
+        else:
+            comp.run(idle_timeout_ms=args.idle_timeout_ms)
     except KeyboardInterrupt:
         pass
     return 0

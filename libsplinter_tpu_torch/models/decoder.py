@@ -16,9 +16,16 @@ counterpart of the JAX package's flax decoder:
 
 Prefill chunks at or above ``flash_min_seq`` attend through kernel K4
 (ops/flash_attention.causal_flash_attention); shorter chunks and the
-S = 1 decode steps through the plain masked softmax, as in the JAX
-package.  The block-paged continuous lane (``PagedKVCache``, kernel K5)
-is not ported yet: ``CompletionModel.paged_supported`` is False.
+dense S = 1 decode steps through the plain masked softmax, as in the
+JAX package.
+
+The block-paged continuous lane keeps K/V in a global page pool
+(``PagedKVCache``: host block tables, refcounts, trash block 0; bf16,
+f32, int8 or int4-packed storage) that every decode step and every
+prefix-cache suffix prefill reads in place through kernel K5
+(ops/paged_attention.paged_attention).  The pools are updated IN PLACE
+by the appends, the commit scatter and the copy-on-write copy, where
+the JAX package donates them to each program.
 
 Weights load from a llama-family safetensors file (the port's own
 reader), bridge from the JAX package's flax tree (``params_from_jax``),
@@ -37,7 +44,9 @@ from torch import nn
 from ..obs.devtime import DEVTIME, close_mark
 from ..ops.flash_attention import (causal_attention_plain,
                                   causal_flash_attention)
-from ..utils.device import resolve_device
+from ..ops.paged_attention import (INT4_QMAX, pack_int4, paged_attention,
+                                  unpack_int4)
+from ..utils.device import DeviceFuture, resolve_device
 from .encoder import (_apply_rotary, _rotary_angles, read_safetensors,
                       state_dict_from_flax, write_safetensors)
 
@@ -79,6 +88,343 @@ def init_cache(cfg: DecoderConfig, batch: int, device=None):
                   for _ in range(2)) for _ in range(cfg.layers)]
 
 
+# the paged pool's storage dtypes: "int8" stores int8 values with one
+# f32 scale per (page block, kv head) beside each pool; "int4" packs two
+# 4-bit codes per uint8 byte (last axis head_dim / 2, split-half nibble
+# layout, ops/paged_attention.pack_int4) under the same scales; "bf16"
+# and "f32" are float pools
+KV_DTYPES = ("bf16", "f32", "int8", "int4")
+
+
+def _kv_storage(cfg: DecoderConfig, kv_dtype: str | None):
+    """(label, storage dtype, quantized?) of a pool.  None keeps the
+    model's activation dtype; a uint8 pool is int4-packed (every
+    consumer keys packing off the dtype)."""
+    if kv_dtype is None:
+        label = ("bf16" if cfg.dtype == torch.bfloat16 else
+                 "f32" if cfg.dtype == torch.float32 else
+                 str(cfg.dtype).replace("torch.", ""))
+        return label, cfg.dtype, False
+    table = {"int8": (torch.int8, True), "int4": (torch.uint8, True),
+             "bf16": (torch.bfloat16, False), "f32": (torch.float32, False)}
+    if kv_dtype not in table:
+        raise ValueError(
+            f"unknown kv_dtype {kv_dtype!r} (supported: {KV_DTYPES})")
+    return (kv_dtype, *table[kv_dtype])
+
+
+def _rescale_append(pages, scales, bids, offs, x, qmax: float):
+    """The rescale-on-append arithmetic shared by int8 and int4, over
+    (B, KH, page, D) f32 CODES of the touched pages: per (row, kv head)
+    the page's scale grows to cover the new token (s_new = max(s_old,
+    |x|_inf / qmax)), the existing codes re-round at the grown scale,
+    and the token's codes land in its slot.  A write at in-page offset
+    0 treats the page as fresh (s_old = 0): a page back from the free
+    list still carries its last owner's scale.  Returns (codes, s_new)."""
+    s_old = torch.where(offs[:, None] == 0, 0.0, scales[bids])   # (B, KH)
+    xf = x.float()
+    s_tok = xf.abs().amax(dim=-1) / qmax
+    s_new = torch.maximum(s_old, s_tok)
+    safe = torch.where(s_new > 0, s_new, 1.0)
+    pages = torch.round(pages * (s_old / safe)[:, :, None, None])
+    qtok = torch.clamp(torch.round(xf / safe[:, :, None]), -qmax, qmax)
+    slot = (torch.arange(pages.shape[2], device=pages.device)[None, None, :,
+                                                              None]
+            == offs[:, None, None, None])
+    return torch.where(slot, qtok[:, :, None, :], pages), s_new
+
+
+def _quant_append(pool, scales, bids, offs, x):
+    """Append one token per row into int8 pages, IN PLACE, with
+    rescale-on-append (monotone per-page scales, see _rescale_append).
+
+    pool: (n_blocks, KH, page, D) int8; scales: (n_blocks, KH) f32;
+    bids/offs: (B,) block id + in-page slot per row; x: (B, KH, D).
+    Dead rows and pad appends point at the trash block 0 — their writes
+    (duplicate indices, any one of them wins) land there harmlessly;
+    live rows never share a written page (copy-on-write runs first).
+    A uint8 pool is int4-packed and goes to _quant_append_int4."""
+    if pool.dtype == torch.uint8:
+        return _quant_append_int4(pool, scales, bids, offs, x)
+    codes, s_new = _rescale_append(pool[bids].float(), scales, bids, offs,
+                                   x, 127.0)
+    pool[bids] = codes.to(torch.int8)
+    scales[bids] = s_new
+    return pool, scales
+
+
+def _quant_append_int4(pool, scales, bids, offs, x):
+    """int4-packed rescale-on-append, IN PLACE: unpack the touched
+    pages' codes, rescale at qmax 7, write the token's codes, repack.
+    Never-written tail slots unpack to code -8; the rescale ratio <= 1
+    keeps them in [-8, 7] and the length mask hides them.
+
+    pool: (n_blocks, KH, page, D/2) uint8; scales: (n_blocks, KH) f32;
+    x: (B, KH, D)."""
+    codes, s_new = _rescale_append(unpack_int4(pool[bids]), scales, bids,
+                                   offs, x, INT4_QMAX)
+    pool[bids] = pack_int4(torch.clamp(codes, -8, 7))
+    scales[bids] = s_new
+    return pool, scales
+
+
+class PagedKVCache:
+    """Block-paged KV pool for the continuous-batching decode lane.
+
+    Per layer, on the model's device:
+
+        k_pools / v_pools: (n_blocks, kv_heads, page, head_dim)
+
+    (head_dim / 2 uint8 bytes for int4), plus for quantized pools
+    k_scales / v_scales (n_blocks, kv_heads) f32, and on the host a
+    (batch, pages_per_row) int32 block table and (batch,) lengths.
+    Block 0 is the reserved TRASH block: never allocated, every unused
+    table entry points at it, so dead rows' appends land harmlessly and
+    gathers of unused pages read garbage the ragged length mask hides.
+
+    Allocation is host-side and page-granular, with the JAX package's
+    semantics: ensure(row, tokens) grows a row's table all-or-nothing
+    (admission backpressure), free_row returns its pages; per-page
+    refcounts let rows share full prompt pages (map_shared), and a
+    bound prefix cache (engine/prefix_cache.PrefixCache) may keep
+    zero-ref pages frozen until the allocator reclaims them.  The
+    device tensors are updated in place by the model's programs."""
+
+    def __init__(self, cfg: DecoderConfig, batch: int, *,
+                 page: int = 128, pool_pages: int | None = None,
+                 kv_dtype: str | None = None, device=None):
+        if page < 1:
+            raise ValueError("page must be >= 1")
+        self.cfg = cfg
+        self.batch = batch
+        self.page = page
+        self.pages_per_row = -(-cfg.max_len // page)
+        if pool_pages is None:
+            # safe default: every row's full window (== dense memory at
+            # this batch); deployments cap it with --pool-pages
+            pool_pages = batch * self.pages_per_row
+        if pool_pages < self.pages_per_row:
+            raise ValueError(
+                f"pool_pages {pool_pages} cannot hold even one full "
+                f"window ({self.pages_per_row} pages)")
+        self.n_blocks = pool_pages + 1               # + the trash block
+        self.kv_dtype, store_dtype, self.quantized = \
+            _kv_storage(cfg, kv_dtype)
+        self.packed = store_dtype == torch.uint8
+        if self.packed and cfg.head_dim % 2:
+            raise ValueError(
+                f"kv_dtype=\"int4\" packs two codes per byte along "
+                f"head_dim; head_dim={cfg.head_dim} must be even")
+        self.device = resolve_device(device)
+        shape = (self.n_blocks, cfg.kv_heads, page,
+                 cfg.head_dim // 2 if self.packed else cfg.head_dim)
+
+        def zeros(shp, dtype):
+            return [torch.zeros(shp, dtype=dtype, device=self.device)
+                    for _ in range(cfg.layers)]
+
+        self.k_pools = zeros(shape, store_dtype)
+        self.v_pools = zeros(shape, store_dtype)
+        if self.quantized:
+            self.k_scales = zeros((self.n_blocks, cfg.kv_heads),
+                                  torch.float32)
+            self.v_scales = zeros((self.n_blocks, cfg.kv_heads),
+                                  torch.float32)
+        else:
+            self.k_scales = self.v_scales = None
+        self.tables = np.zeros((batch, self.pages_per_row), np.int32)
+        self.lengths = np.zeros((batch,), np.int32)
+        self._free = list(range(self.n_blocks - 1, 0, -1))
+        self._owned: list[list[int]] = [[] for _ in range(batch)]
+        self.refcounts = np.zeros((self.n_blocks,), np.int64)
+        self.prefix_cache = None
+        self._ever_shared = False
+
+    def layers(self) -> list[tuple]:
+        """Per layer (k_pool, v_pool), or (k_pool, v_pool, k_scales,
+        v_scales) for a quantized pool — the decoder's paged cache."""
+        if self.quantized:
+            return list(zip(self.k_pools, self.v_pools, self.k_scales,
+                            self.v_scales))
+        return list(zip(self.k_pools, self.v_pools))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def available_pages(self) -> int:
+        """Free-list pages plus zero-ref prefix-cache pages the
+        allocator can reclaim on demand (admission compares against
+        this)."""
+        pc = self.prefix_cache
+        extra = pc.evictable_count() if pc is not None else 0
+        return len(self._free) + extra
+
+    def _alloc_page(self) -> int:
+        """Pop one page (refcount 1), evicting zero-ref cached pages
+        LRU-first when the free list is dry; raises when the pool is
+        truly exhausted (callers gate on available_pages first)."""
+        if not self._free:
+            pc = self.prefix_cache
+            if pc is None or not pc.reclaim(1):
+                raise RuntimeError("paged pool exhausted")
+        bid = self._free.pop()
+        self.refcounts[bid] = 1
+        return bid
+
+    def _decref(self, bid: int) -> None:
+        self.refcounts[bid] -= 1
+        if self.refcounts[bid] < 0:      # double-free: a scheduler bug
+            raise RuntimeError(f"page {bid} refcount underflow")
+        if self.refcounts[bid] == 0:
+            pc = self.prefix_cache
+            if pc is None or not pc.on_zero_ref(bid):
+                self._free.append(bid)
+
+    def map_shared(self, row: int, bids: list[int]) -> None:
+        """Point `row`'s next table entries at already-committed pages
+        (refcount bump, no device work); the caller sets lengths[row]
+        to the token count the mapped prefix covers."""
+        have = len(self._owned[row])
+        if have + len(bids) > self.pages_per_row:
+            raise ValueError("mapped prefix exceeds the row's table")
+        pc = self.prefix_cache
+        for i, bid in enumerate(bids):
+            bid = int(bid)
+            if bid <= 0 or bid >= self.n_blocks:
+                raise ValueError(f"bad shared page id {bid}")
+            self.refcounts[bid] += 1
+            if self.refcounts[bid] == 1 and pc is not None:
+                pc.on_ref(bid)         # evictable page pinned again
+            self._owned[row].append(bid)
+            self.tables[row, have + i] = bid
+        if bids:
+            self._ever_shared = True
+
+    def cow_targets(self) -> list[tuple[int, int]]:
+        """(row, page_index) pairs whose NEXT decode append would write
+        into a page another reader holds (refcount > 1, or frozen in
+        the prefix tree): only the page holding position lengths[row]
+        can qualify."""
+        if not self._ever_shared and self.prefix_cache is None:
+            return []
+        out = []
+        pc = self.prefix_cache
+        for r in range(self.batch):
+            length = int(self.lengths[r])
+            if length <= 0:
+                continue
+            p_idx = min(length, self.cfg.max_len - 1) // self.page
+            if p_idx >= len(self._owned[r]):
+                continue
+            bid = int(self.tables[r, p_idx])
+            if bid == 0:
+                continue
+            if self.refcounts[bid] > 1 or \
+                    (pc is not None and pc.retains(bid)):
+                out.append((r, p_idx))
+        return out
+
+    def commit_cow(self, row: int, p_idx: int, new_bid: int) -> None:
+        """Host half of a copy-on-write: swap the row's table entry to
+        the private copy and drop its reference on the original."""
+        old = int(self.tables[row, p_idx])
+        self._owned[row][p_idx] = new_bid
+        self.tables[row, p_idx] = new_bid
+        self._decref(old)
+        pc = self.prefix_cache
+        if pc is not None:
+            pc.stats.cow_copies += 1
+
+    def kv_bytes_per_token(self) -> int:
+        """KV bytes one token occupies across every layer (k + v);
+        int4-packed pools store half a byte per value."""
+        if self.packed:
+            return (self.cfg.layers * 2 * self.cfg.kv_heads
+                    * (self.cfg.head_dim // 2))
+        itemsize = (1 if self.quantized else
+                    4 if self.kv_dtype == "f32" else 2)
+        return (self.cfg.layers * 2 * self.cfg.kv_heads
+                * self.cfg.head_dim * itemsize)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_blocks - 1 - len(self._free)
+
+    def pages_needed(self, tokens: int) -> int:
+        tokens = min(int(tokens), self.cfg.max_len)
+        return -(-tokens // self.page) if tokens > 0 else 0
+
+    def ensure(self, row: int, tokens: int) -> bool:
+        """Grow row's table to cover `tokens`; False (nothing
+        allocated) when the pool cannot — admission backpressure."""
+        need = self.pages_needed(tokens)
+        have = len(self._owned[row])
+        if need <= have:
+            return True
+        if need - have > self.available_pages:
+            return False
+        for p in range(have, need):
+            bid = self._alloc_page()
+            self._owned[row].append(bid)
+            self.tables[row, p] = bid
+        return True
+
+    def free_row(self, row: int) -> None:
+        """Drop every page reference the row holds; a page returns to
+        the free list when its last reader lets go (or parks evictable
+        when the prefix tree retains it)."""
+        for bid in self._owned[row]:
+            self._decref(bid)
+        self._owned[row] = []
+        self.tables[row, :] = 0
+        self.lengths[row] = 0
+
+    def reset(self) -> None:
+        for r in range(self.batch):
+            self.free_row(r)
+
+    def live_tokens(self) -> int:
+        return int(self.lengths.sum())
+
+    def device_mb(self) -> float:
+        """Pool bytes of the device tensors (values + scales, all
+        layers, k and v), in MB."""
+        arrs = list(self.k_pools) + list(self.v_pools)
+        if self.quantized:
+            arrs += list(self.k_scales) + list(self.v_scales)
+        total = sum(a.numel() * a.element_size() for a in arrs)
+        return round(total / 1e6, 3)
+
+
+class PendingChunk:
+    """One in-flight paged decode chunk (paged_decode_chunk_async): the
+    (n, batch) sampled block still on the device, plus `last`, the final
+    sampled column as a DEVICE tensor the next chunk's dispatch consumes
+    (carry=), so chaining chunks costs no host round trip.  is_ready()
+    queries a CUDA event and never syncs; block() makes the one host
+    copy per chunk and returns (batch, n)."""
+
+    __slots__ = ("_out", "last", "n", "_mark")
+
+    def __init__(self, out, last, n: int, mark=None):
+        self._out = DeviceFuture(out)
+        self.last = last
+        self.n = n
+        self._mark = mark             # devtime DispatchMark, closed at
+        # block()
+
+    def is_ready(self) -> bool:
+        return self._out.is_ready()
+
+    def block(self) -> np.ndarray:
+        host = self._out.value.cpu().numpy().T          # (batch, n)
+        mark, self._mark = self._mark, None
+        close_mark(mark)
+        return host
+
+
 class RMSNorm(nn.Module):
     """f32 statistics and f32 scale, output in the activation dtype."""
 
@@ -103,19 +449,29 @@ class CausalAttention(nn.Module):
         self.v = nn.Linear(cfg.hidden, cfg.kv_heads * d, bias=False)
         self.out = nn.Linear(cfg.heads * d, cfg.hidden, bias=False)
 
-    def forward(self, x, cache_kv, pos: int, start, rotary):
+    def forward(self, x, cache_kv, pos: int, start, rotary, lengths=None,
+                tables=None, n_valid: int | None = None):
         """x: (B, S, hidden), the chunk at cache slots pos..pos+S-1.
         cache_kv: (k, v) each (B, T, KH, D), written in place at those
         slots.  start: None, or (B,) left-pad offsets — row r's real
         tokens occupy slots start[r].., its rotary position at slot s is
         s - start[r], and slots below start[r] are masked.  rotary: the
-        (T, D/2) cos/sin tables."""
+        (T, D/2) cos/sin tables.
+
+        PAGED (lengths given): cache_kv is one layer of a PagedKVCache,
+        (k_pool, v_pool) or (k_pool, v_pool, k_scales, v_scales); tables
+        (B, P) int32 and lengths (B,) on the device; pos/start are
+        ignored (see _paged)."""
         cfg = self.cfg
         b, s, _ = x.shape
         d = cfg.head_dim
         q = self.q(x).reshape(b, s, cfg.heads, d)
         k = self.k(x).reshape(b, s, cfg.kv_heads, d)
         v = self.v(x).reshape(b, s, cfg.kv_heads, d)
+        if lengths is not None:
+            out = self._paged(q, k, v, cache_kv, lengths, tables, n_valid,
+                              rotary)
+            return self.out(out.reshape(b, s, cfg.heads * d))
         cos_t, sin_t = rotary
         slots = pos + torch.arange(s, device=x.device)
         if start is None:
@@ -140,6 +496,48 @@ class CausalAttention(nn.Module):
             out = causal_attention_plain(q, kk, vv, pos, start)
         return self.out(out.reshape(b, s, cfg.heads * d))
 
+    def _paged(self, q, k, v, cache_kv, lengths, tables, n_valid, rotary):
+        """Row r's S new tokens sit at ITS OWN positions lengths[r] ..
+        lengths[r]+S-1, clamped to the window's last slot (a contract
+        violation rewrites the row's last slot instead of wrapping into
+        a neighbour's page).  Each token's K/V append into its page of
+        the row's table, in place: float pools in one scatter for the
+        whole stack, quantized pools token by token (rescale-on-append
+        is order-dependent).  Stack positions s >= n_valid (the pad of a
+        suffix bucket) append to the trash block, so a pad never grows
+        an int8 page's monotone scale.  Then K5 over the pool: S == 1 is
+        the decode step, S > 1 the multi-query stack (token t attends
+        keys j < lengths[r] + 1 + t).  Returns (B, S, H, D)."""
+        cfg = self.cfg
+        s = q.shape[1]
+        cos_t, sin_t = rotary
+        kp, vp = cache_kv[0], cache_kv[1]
+        ksc, vsc = (cache_kv[2], cache_kv[3]) if len(cache_kv) == 4 \
+            else (None, None)
+        page = kp.shape[2]
+        steps = torch.arange(s, device=q.device)
+        rp = torch.clamp(lengths.long()[:, None] + steps[None],
+                         max=cfg.max_len - 1)                    # (B, S)
+        q = _apply_rotary(q, cos_t[rp], sin_t[rp])
+        k = _apply_rotary(k, cos_t[rp], sin_t[rp])
+        bids = torch.gather(tables.long(), 1, rp // page)        # (B, S)
+        if n_valid is not None and n_valid < s:
+            bids[:, n_valid:] = 0
+        offs = rp % page
+        if ksc is None:
+            # advanced indices around a slice: the (B, S) index dims
+            # come first, then (KH, D) — k's own layout
+            kp[bids, :, offs] = k.to(kp.dtype)
+            vp[bids, :, offs] = v.to(vp.dtype)
+        else:
+            for i in range(s):
+                _quant_append(kp, ksc, bids[:, i], offs[:, i], k[:, i])
+                _quant_append(vp, vsc, bids[:, i], offs[:, i], v[:, i])
+        att_len = rp[:, 0] + 1
+        out = paged_attention(q if s > 1 else q[:, 0], kp, vp, tables,
+                              att_len, k_scales=ksc, v_scales=vsc)
+        return out if s > 1 else out[:, None]
+
 
 class DecoderLayer(nn.Module):
     """Pre-norm attention + SwiGLU MLP; the gate/up/down projections sit
@@ -154,8 +552,10 @@ class DecoderLayer(nn.Module):
         self.up = nn.Linear(cfg.hidden, cfg.mlp_dim, bias=False)
         self.down = nn.Linear(cfg.mlp_dim, cfg.hidden, bias=False)
 
-    def forward(self, x, cache_kv, pos, start, rotary):
-        x = x + self.attn(self.ln_attn(x), cache_kv, pos, start, rotary)
+    def forward(self, x, cache_kv, pos, start, rotary, lengths=None,
+                tables=None, n_valid=None):
+        x = x + self.attn(self.ln_attn(x), cache_kv, pos, start, rotary,
+                          lengths, tables, n_valid)
         h = self.ln_mlp(x)
         return x + self.down(F.silu(self.gate(h)) * self.up(h))
 
@@ -183,19 +583,25 @@ class Decoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
 
     def forward(self, token_ids, cache, pos: int, start=None, *,
-                last: int | None = None):
+                last: int | None = None, lengths=None, tables=None,
+                n_valid: int | None = None):
         """token_ids: (B, S) int; cache: list of per-layer (k, v),
         updated in place; pos: cache slot of token_ids[:, 0]; start:
         optional (B,) left-pad offsets.  Returns (B, S, V) float32
         logits — or (B, 1, V) at chunk position `last` only, which is
-        all a prefill samples from (the LM head is row-wise)."""
-        if pos + token_ids.shape[1] > self.cfg.max_len:
+        all a prefill samples from (the LM head is row-wise).
+
+        With lengths (B,) and tables (B, P) on the device, cache is a
+        PagedKVCache's layers() and the step runs the paged path
+        (CausalAttention._paged; n_valid routes pad appends to the trash
+        block)."""
+        if lengths is None and pos + token_ids.shape[1] > self.cfg.max_len:
             raise ValueError(f"slots {pos}..{pos + token_ids.shape[1] - 1} "
                              f"exceed the {self.cfg.max_len}-slot cache")
         x = self.tok_emb(token_ids)
         rotary = (self.rot_cos, self.rot_sin)
         for layer, kv in zip(self.layer_modules(), cache):
-            x = layer(x, kv, pos, start, rotary)
+            x = layer(x, kv, pos, start, rotary, lengths, tables, n_valid)
         x = self.ln_out(x)
         if last is not None:
             x = x[:, last:last + 1]
@@ -283,22 +689,34 @@ class CompletionModel:
         tok = model.sample(logits)
         while ...: logits = model.decode_one(tok); tok = model.sample(...)
     and the batched one: prefill_batch / decode_chunk_batch /
-    generate_batch over left-padded rows.  The cache stays on the device
-    between calls; the host sees the sampled ids once per chunk.
+    generate_batch over left-padded rows, and the block-paged one the
+    continuous lane drives: init_paged / paged_prefill_row /
+    paged_append_prefill / paged_decode_chunk(_async).  The caches stay
+    on the device between calls; the host sees the sampled ids once per
+    chunk.
     """
 
-    # the block-paged continuous lane (kernel K5) is not ported yet
-    paged_supported = False
+    # the block-paged continuous lane (PagedKVCache + kernel K5)
+    paged_supported = True
 
     def __init__(self, cfg: DecoderConfig, *, seed: int = 0,
                  buckets: tuple[int, ...] = (64, 128, 256, 512, 1024),
                  params: dict | None = None, weights: str | None = None,
-                 top_p: float = 0.9, temp: float = 0.7, device=None):
+                 top_p: float = 0.9, temp: float = 0.7, device=None,
+                 kv_dtype: str | None = None,
+                 suffix_buckets: tuple[int, ...] = (16, 64)):
         """params: a Decoder state_dict (e.g. from params_from_jax);
         weights: a .safetensors checkpoint path.  device: "cuda"
-        (default) or "cpu"."""
+        (default) or "cpu".  kv_dtype: init_paged's default pool
+        storage (None = the activation dtype).  suffix_buckets: the pad
+        buckets of paged_append_prefill's stacks (longer suffixes loop
+        the largest)."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.suffix_buckets = tuple(sorted(
+            b for b in suffix_buckets if 0 < b < cfg.max_len)) or (
+            min(16, max(1, cfg.max_len - 1)),)
+        self.kv_dtype = kv_dtype
         self.buckets = tuple(b for b in buckets if b <= cfg.max_len)
         if not self.buckets or self.buckets[-1] < cfg.max_len:
             # a prompt longer than the largest bucket (but inside the
@@ -328,6 +746,14 @@ class CompletionModel:
         self.module = module.eval().requires_grad_(False)
         self._fn = DEVTIME.register("completer.trunk", self._forward)
         self._chunk_fn = DEVTIME.register("completer.chunk", self._chunk)
+        self._commit_fn = DEVTIME.register("completer.paged_commit",
+                                           self._paged_commit)
+        self._suffix_fn = DEVTIME.register("completer.suffix_prefill",
+                                           self._paged_suffix)
+        self._paged_chunk_fn = DEVTIME.register("completer.paged_chunk",
+                                                self._paged_chunk)
+        self._cow_fn = DEVTIME.register("completer.cow_copy",
+                                        self._cow_copy)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed + 1)
         self._cache = None
@@ -354,15 +780,28 @@ class CompletionModel:
         return self._pos
 
     def compile_count(self) -> int:
-        """Distinct (program, shape) pairs run — PyTorch has no jit
-        cache, so this is the shape-leak signal: a count still growing
-        after warmup means some serving geometry escapes the bucket
-        set."""
+        """Distinct (program, shape) pairs run, the paged programs
+        included — PyTorch has no jit cache, so this is the shape-leak
+        signal: a count still growing after warmup means some serving
+        geometry escapes the bucket set."""
         return len(self._shapes)
 
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
             self.device)
+
+    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
+        """A private device copy of a host array the caller goes on
+        mutating (the paged tables and lengths change while chunks are
+        in flight): staged through pinned memory and copied
+        asynchronously on the current stream, so the dispatch never
+        waits for the device (PyTorch's pinned-memory allocator holds
+        the staging block until the copy has run).  The pinned copy is
+        the snapshot; on the CPU the array is copied outright."""
+        if self.device.type == "cuda":
+            return torch.from_numpy(arr).pin_memory().to(self.device,
+                                                         non_blocking=True)
+        return torch.from_numpy(np.array(arr, copy=True))
 
     @torch.no_grad()
     def _forward(self, ids, cache, pos: int, start=None, last=None):
@@ -613,6 +1052,283 @@ class CompletionModel:
                             np.ones((batch,), np.int32), chunk)
                         chunk_done = True
                     self.reset()
+
+    # -- block-paged serving (the continuous lane) --------------------------
+    #
+    # Each row has its own logical positions 0..len-1 in pages of a
+    # global pool (PagedKVCache): a joiner prefills into freshly
+    # allocated pages at any time with its full context, and a finished
+    # row's pages return to the pool at once.  A prompt prefills through
+    # the dense trunk over a bucket-sized scratch cache (K4 on buckets of
+    # 512 and up), then one commit scatter writes the rows into pages;
+    # decode steps and prefix-cache suffix stacks attend through K5 over
+    # the pool in place.
+
+    def init_paged(self, batch: int, *, page: int = 128,
+                   pool_pages: int | None = None,
+                   kv_dtype: str | None = None) -> PagedKVCache:
+        """A fresh pool on this model's device serving `batch` rows; the
+        default holds batch full windows.  kv_dtype None defers to the
+        constructor's kv_dtype."""
+        return PagedKVCache(self.cfg, batch, page=page,
+                            pool_pages=pool_pages,
+                            kv_dtype=(self.kv_dtype if kv_dtype is None
+                                      else kv_dtype),
+                            device=self.device)
+
+    @torch.no_grad()
+    def _paged_commit(self, cache: PagedKVCache, dense, bids, n_valid: int):
+        """Scatter a (1, bucket) dense prefill cache into pool pages at
+        `bids` (the row's first ceil(bucket / page) table entries; the
+        trash block past its pages), in place.  The tail of the last
+        page holds garbage the length mask hides until decode appends
+        overwrite it.  Quantized pools quantize here: rows past the
+        prompt's n_valid are zeroed first (pad K/V would inflate the
+        page scale), then each (page, kv head) gets d = absmax / qmax
+        and its codes (int4: packed two per byte)."""
+        cfg = self.cfg
+        bucket, page = dense[0][0].shape[1], cache.page
+        self._shapes.add(("paged_commit", bucket, page, cache.kv_dtype))
+        n_cp = -(-bucket // page)
+        pad = n_cp * page - bucket
+        keep = torch.arange(bucket, device=self.device) < n_valid
+        qmax = INT4_QMAX if cache.packed else 127.0
+
+        def blocks(x, zero_pad: bool):
+            x = x[0]                                   # (bucket, KH, D)
+            if zero_pad:
+                x = x.masked_fill(~keep[:, None, None], 0)
+            if pad:
+                x = F.pad(x, (0, 0, 0, 0, 0, pad))
+            return x.reshape(n_cp, page, cfg.kv_heads, -1).transpose(1, 2)
+
+        for li, kv in enumerate(cache.layers()):
+            for x, pool, scales in ((dense[li][0], kv[0], kv[2:3]),
+                                    (dense[li][1], kv[1], kv[3:4])):
+                if not cache.quantized:
+                    pool[bids] = blocks(x, False).to(pool.dtype)
+                    continue
+                xb = blocks(x, True).float()
+                d = xb.abs().amax(dim=(2, 3)) / qmax
+                codes = torch.clamp(torch.round(
+                    xb / torch.where(d > 0, d, 1.0)[:, :, None, None]),
+                    -qmax, qmax)
+                pool[bids] = (pack_int4(codes) if cache.packed
+                              else codes.to(torch.int8))
+                scales[0][bids] = d
+        return bids      # a device result, as the devtime wrapper expects
+
+    def paged_prefill_row(self, cache: PagedKVCache,
+                          prompt_ids: np.ndarray, row: int) -> np.ndarray:
+        """Prefill one row's prompt into its pages: bucketed dense
+        prefill over a (1, bucket) scratch cache, then the commit
+        scatter.  The row keeps its FULL prompt (callers clip only to
+        the window budget).  Returns the last real token's logits (V,)
+        for sampling the first output token."""
+        cfg = self.cfg
+        n = len(prompt_ids)
+        if n == 0:
+            raise ValueError("empty prompt")
+        if n >= cfg.max_len:
+            raise ValueError("prompt exceeds context window")
+        if not cache.ensure(row, n):
+            raise RuntimeError(
+                f"paged pool exhausted: row {row} needs "
+                f"{cache.pages_needed(n)} pages, {cache.free_pages} free")
+        b = self.bucket_for(n)
+        ids = np.zeros((1, b), np.int64)
+        ids[0, :n] = np.asarray(prompt_ids[:n], np.int64)
+        # a bucket-sized scratch (not max_len): the trunk runs at T = b
+        shape = (1, b, cfg.kv_heads, cfg.head_dim)
+        scratch = [tuple(torch.zeros(shape, dtype=cfg.dtype,
+                                     device=self.device) for _ in range(2))
+                   for _ in range(cfg.layers)]
+        logits = self._fn(self._ids(ids), scratch, 0, last=n - 1)
+        # table entries past the prompt's pages are 0 (trash) or the
+        # row's reserved decode pages: the bucket's pad rows land there
+        # and decode appends overwrite them before any query sees them
+        n_cp = -(-b // cache.page)
+        bids = self._h2d(cache.tables[row, :n_cp].astype(np.int64))
+        self._commit_fn(cache, scratch, bids, n)
+        cache.lengths[row] = n
+        return _host(logits[0, 0], "completer.trunk")
+
+    # The radix prefix cache (engine/prefix_cache.py) turns a shared
+    # prompt prefix into a host-side table write (map_shared); only the
+    # uncached suffix runs a forward, attending over the mapped pages
+    # through K5's multi-query stack.  A fully cached prompt prefills
+    # nothing: the row enters at lengths = P-1 and the first decode
+    # chunk replays the last prompt token, whose append lands in the
+    # shared tail page and so takes the copy-on-write below.
+
+    @torch.no_grad()
+    def _paged_suffix(self, cache: PagedKVCache, ids, table, lengths,
+                      n_valid: int):
+        """Append a (1, sb) suffix stack into a row's pages (positions
+        lengths..lengths+n_valid-1; pads to the trash block) and attend
+        through K5; returns the last valid token's logits (V,)."""
+        self._shapes.add(("suffix", ids.shape[1], cache.kv_dtype))
+        logits = self.module(ids, cache.layers(), 0, lengths=lengths,
+                             tables=table, n_valid=n_valid,
+                             last=n_valid - 1)
+        return logits[0, 0]
+
+    def paged_append_prefill(self, cache: PagedKVCache, suffix_ids,
+                             row: int) -> np.ndarray:
+        """Prefill ONLY the uncached suffix of row's prompt atop the
+        cache.lengths[row] tokens its table already maps, in stacks of
+        the suffix buckets (longer suffixes loop the largest).  Returns
+        the last real token's logits (V,)."""
+        ids = np.asarray(suffix_ids, np.int64)
+        if ids.size == 0:
+            raise ValueError("empty suffix")
+        pos = int(cache.lengths[row])
+        if pos + ids.size >= self.cfg.max_len:
+            raise ValueError("suffix exceeds context window")
+        if not cache.ensure(row, pos + ids.size):
+            raise RuntimeError(
+                f"paged pool exhausted: row {row} suffix needs "
+                f"{cache.pages_needed(pos + ids.size)} pages")
+        table = self._h2d(cache.tables[row: row + 1])
+        logits = None
+        off = 0
+        while off < ids.size:
+            rem = ids.size - off
+            sb = next((b for b in self.suffix_buckets if b >= rem),
+                      self.suffix_buckets[-1])
+            n = min(rem, sb)
+            chunk = np.zeros((1, sb), np.int64)
+            chunk[0, :n] = ids[off: off + n]
+            logits = self._suffix_fn(cache, self._ids(chunk), table,
+                                     self._h2d(cache.lengths[row: row + 1]),
+                                     n)
+            cache.lengths[row] += n
+            off += n
+        return _host(logits, "completer.suffix_prefill")
+
+    @torch.no_grad()
+    def _cow_copy(self, cache: PagedKVCache, src: int, dst: int):
+        """Duplicate pool page `src` into `dst` across every layer and
+        side (and the scales), in place — the device half of a
+        copy-on-write, queued before the table swap."""
+        self._shapes.add(("cow", cache.kv_dtype))
+        pools = list(cache.k_pools) + list(cache.v_pools)
+        if cache.quantized:
+            pools += list(cache.k_scales) + list(cache.v_scales)
+        for p in pools:
+            p[dst] = p[src]
+        return pools[0][dst]   # a device result, as for the commit
+
+    def _cow_fixups(self, cache: PagedKVCache) -> int:
+        """Copy-on-write pass before a decode dispatch: every row whose
+        next append would write into a shared or tree-frozen page gets a
+        private copy first.  Returns pages copied."""
+        n = 0
+        for row, p_idx in cache.cow_targets():
+            src = int(cache.tables[row, p_idx])
+            dst = cache._alloc_page()
+            self._cow_fn(cache, src, dst)
+            cache.commit_cow(row, p_idx, dst)
+            n += 1
+        return n
+
+    @torch.no_grad()
+    def _paged_chunk(self, cache: PagedKVCache, tables, lengths, toks,
+                     n: int):
+        """n paged decode steps for every row of the pool: per step,
+        append one token per row into its pages, K5, and sample on the
+        device.  Returns (n, batch) ids; nothing reaches the host."""
+        self._shapes.add(("paged_chunk", n, cache.batch, cache.kv_dtype))
+        out = torch.empty((n, toks.shape[0]), dtype=torch.int64,
+                          device=self.device)
+        layers = cache.layers()
+        for i in range(n):
+            logits = self.module(toks[:, None], layers, 0, lengths=lengths,
+                                 tables=tables)
+            toks = _sample_rows(self._gen, logits[:, 0], self.top_p,
+                                self.temp)
+            out[i] = toks
+            lengths = lengths + 1
+        return out
+
+    def paged_decode_chunk(self, cache: PagedKVCache, tokens, n: int
+                           ) -> np.ndarray:
+        """Append tokens (batch,), decode and sample n steps for every
+        row of the pool.  Rows with lengths == 0 are dead: they decode
+        into the trash block and the caller discards their column.
+        Returns (batch, n) sampled ids."""
+        return self.paged_decode_chunk_async(cache, tokens, n).block()
+
+    def paged_decode_chunk_async(self, cache: PagedKVCache, tokens,
+                                 n: int, carry=None) -> PendingChunk:
+        """Dispatch a decode chunk without waiting for it.  `tokens`
+        (batch,) host ids: with carry=None every row reads its first
+        input from them; with carry (the previous PendingChunk.last, a
+        device column) only rows with tokens[r] >= 0 do (a joiner's
+        prefill sample) and the rest take the carry, so chained chunks
+        cost no host round trip.  The tables and lengths go to the
+        device as private copies taken here; host lengths advance at
+        dispatch, so window checks already count in-flight chunks."""
+        bp = cache.batch
+        for r in range(bp):
+            length = int(cache.lengths[r])
+            if length > 0 and not cache.ensure(
+                    r, min(length + n, self.cfg.max_len)):
+                raise RuntimeError(
+                    f"paged pool exhausted mid-decode: row {r} "
+                    f"(admission must reserve prompt + max_new)")
+        # copy-on-write BEFORE the tables snapshot below
+        self._cow_fixups(cache)
+        toks = np.full((bp,), -1, np.int64)
+        toks[: len(tokens)] = np.asarray(tokens, np.int64)
+        fresh_mask = np.ones((bp,), bool) if carry is None else toks >= 0
+        toks = np.maximum(toks, 0)
+        toks_t = self._h2d(toks)
+        if carry is not None:
+            toks_t = torch.where(self._h2d(fresh_mask), toks_t, carry)
+        out = self._paged_chunk_fn(cache, self._h2d(cache.tables),
+                                   self._h2d(cache.lengths), toks_t, n)
+        live = cache.lengths > 0
+        cache.lengths[live] = np.minimum(cache.lengths[live] + n,
+                                         self.cfg.max_len)
+        return PendingChunk(out, out[-1], n,
+                            mark=DEVTIME.take_mark("completer.paged_chunk"))
+
+    def warmup_paged(self, cache: PagedKVCache, chunk: int = 8,
+                     max_prompt: int | None = None) -> None:
+        """Run every paged program the continuous lane's hot path
+        touches — per-bucket prefill + commit scatter, the sampler, the
+        chunked paged decode, and with a prefix cache attached the
+        suffix stacks and the COW copy — so compile_count stays flat
+        across join/finish/join cycles.  max_prompt bounds the bucket
+        sweep (no bucket above bucket_for(max_prompt) is ever used)."""
+        with DEVTIME.warmup_phase():
+            cap = (self.bucket_for(max_prompt) if max_prompt is not None
+                   else self.buckets[-1])
+            chunk_done = False
+            for b in self.buckets:
+                if b > cap:
+                    break
+                n = max(1, min(b, self.cfg.max_len) - 1)
+                logits = self.paged_prefill_row(
+                    cache, np.ones((n,), np.int32), 0)
+                self.sample(logits)
+                if not chunk_done and n + chunk < self.cfg.max_len:
+                    self.paged_decode_chunk(
+                        cache, np.ones((cache.batch,), np.int32), chunk)
+                    chunk_done = True
+                cache.free_row(0)
+            if cache.prefix_cache is not None:
+                for sb in self.suffix_buckets:
+                    if sb + chunk >= self.cfg.max_len:
+                        break
+                    self.paged_append_prefill(
+                        cache, np.ones((sb,), np.int32), 0)
+                    cache.free_row(0)
+                src, dst = cache._alloc_page(), cache._alloc_page()
+                self._cow_fn(cache, src, dst)
+                cache._decref(src)
+                cache._decref(dst)
 
 
 # ------------------------------------------------------ checkpoint loading

@@ -32,6 +32,7 @@ SOURCES = {
     "cosine_scores": "cosine_scores.cu",
     "fused_topk": "fused_topk.cu",
     "causal_fwd": "causal_fwd.cu",
+    "paged_fwd": "paged_fwd.cu",
 }
 _HEADERS = ("common.cuh", "score_tile.cuh", "attention.cuh")
 
@@ -57,6 +58,11 @@ _SIGNATURES = {
         "sptk_causal_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32, I32,
                             I32, I32, I64, I64, I64, I64, I64, I64, I64,
                             I64, I64, I64, I64, I64, F32, P],
+    },
+    "paged_fwd": {
+        "sptk_paged_fwd": [P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32,
+                           I32, I32, I32, I32, I64, I64, I64, I64, I64, I64,
+                           F32, P],
     },
 }
 

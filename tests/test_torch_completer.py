@@ -262,11 +262,11 @@ def test_main_serves_on_the_cpu(st, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--continuous"], ["--continuous", "--warmup"], ["--phase", "prefill"],
+    ["--kv-tier-pages", "64"], ["--kv-tier-persist"], ["--phase", "prefill"],
     ["--phase", "decode"], ["--tp", "2"], ["--ep", "2"],
     ["--draft-weights", "d.gguf"], ["--draft-layers", "6"], ["--quantized"],
-    ["--weights-int8"], ["--weights", "int8"], ["--kv-dtype", "int8"],
-    ["--weights", "model.gguf"],
+    ["--weights-int8"], ["--weights", "int8"],
+    ["--continuous", "--phase", "decode"], ["--weights", "model.gguf"],
 ])
 def test_flags_not_yet_ported_exit_nonzero(flags):
     with pytest.raises(SystemExit) as exc:

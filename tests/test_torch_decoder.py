@@ -265,7 +265,7 @@ def test_safetensors_round_trip_with_flax(tmp_path):
 def test_model_surface_and_guards():
     cfg = tdec.DecoderConfig.tiny(dtype=torch.float32)
     m = tdec.CompletionModel(cfg, buckets=(16,), temp=0.0, device="cpu")
-    assert m.buckets == (16, cfg.max_len) and not m.paged_supported
+    assert m.buckets == (16, cfg.max_len) and m.paged_supported
     assert m.prefill(np.ones(40, np.int32)).shape == (cfg.vocab_size,)
     assert m.pos == 40 and m.compile_count() == 1
     m.decode_chunk(1, 4)

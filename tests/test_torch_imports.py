@@ -19,8 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "safetensors", "libsplinter_tpu")
 # so not even those changed)
 VERBATIM = ("_native.py", "store.py", "utils/faults.py",
             "engine/protocol.py", "engine/qos.py", "engine/resident.py",
-            "engine/client.py", "obs/hist.py", "obs/recorder.py",
-            "obs/prom.py", "obs/spans.py")
+            "engine/client.py", "engine/prefix_cache.py", "obs/hist.py",
+            "obs/recorder.py", "obs/prom.py", "obs/spans.py")
 
 
 def _sources():

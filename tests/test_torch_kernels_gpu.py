@@ -163,6 +163,114 @@ def test_decoder_prefill_through_k4_matches_plain_attention(cuda):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
+def _paged_inputs(rng, lengths, *, kh, d, page, n_pages, kind, dev):
+    """Random pools of storage `kind` (bf16, f32, int8 or int4) with
+    one block per used page, shuffled into the rows' tables."""
+    b = len(lengths)
+    n_blocks = 1 + sum(-(-int(n) // page) or 1 for n in lengths)
+    scales = None
+    if kind in ("bf16", "f32"):
+        pools = [torch.from_numpy(rng.standard_normal(
+            (n_blocks, kh, page, d)).astype(np.float32)).to(
+                dev, getattr(torch, {"bf16": "bfloat16",
+                                     "f32": "float32"}[kind]))
+            for _ in range(2)]
+    else:
+        lo, hi, dt, w = ((-127, 128, torch.int8, d) if kind == "int8"
+                         else (0, 256, torch.uint8, d // 2))
+        pools = [torch.from_numpy(rng.integers(lo, hi, (n_blocks, kh, page, w))
+                                  ).to(dev, dt) for _ in range(2)]
+        scales = [torch.from_numpy(rng.uniform(0.005, 0.05, (n_blocks, kh))
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(2)]
+    tables = np.zeros((b, n_pages), np.int32)
+    ids = list(rng.permutation(np.arange(1, n_blocks)))
+    for r, n in enumerate(lengths):
+        for p in range(-(-int(n) // page)):
+            tables[r, p] = ids.pop()
+    return (pools, scales, torch.from_numpy(tables).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("kind,s,h,kh,d,page", [
+    ("bf16", 1, 12, 12, 64, 16),       # decode, rep 1
+    ("f32", 1, 8, 4, 64, 16),          # GQA rep 2
+    ("bf16", 1, 6, 2, 128, 8),         # rep 3, D 128, many small pages
+    ("int8", 1, 8, 4, 64, 16),
+    ("int4", 1, 6, 2, 32, 16),
+    ("bf16", 5, 6, 2, 64, 16),         # the multi-query stack, rep 3
+    ("int4", 20, 4, 4, 64, 128),       # multi-query, one page per row
+])
+def test_paged_matches_plain(cuda, kind, s, h, kh, d, page):
+    """K5 against its plain version on the same pools: live rows within
+    1e-5 (f32 and quantized pools, f32 queries) or the bf16 rounding
+    bound (bf16), and the bf16 case again over the widened f32 pools
+    within 1e-5; dead rows (length 0, one query token) exactly 0."""
+    from libsplinter_tpu_torch.ops.paged_attention import (
+        LAUNCHES_BY_QTOKENS, paged_attention, paged_attention_plain)
+
+    rng = np.random.default_rng(h * 31 + s + d + page)
+    lengths = [1, page, 0, 3 * page + 5, 2 * page - 1, 0]
+    n_pages = -(-(max(lengths) + s) // page) + 1
+    (kp, vp), scales, tables, lens = _paged_inputs(
+        rng, lengths, kh=kh, d=d, page=page, n_pages=n_pages, kind=kind,
+        dev=cuda)
+    qdt = torch.bfloat16 if kind == "bf16" else torch.float32
+    shape = (len(lengths), h, d) if s == 1 else (len(lengths), s, h, d)
+    q = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda, qdt)
+    kw = {} if scales is None else {"k_scales": scales[0],
+                                    "v_scales": scales[1]}
+    before = _cuda.LAUNCHES["paged_fwd"]
+    by_q = LAUNCHES_BY_QTOKENS[s]
+    got = paged_attention(q, kp, vp, tables, lens, **kw)
+    assert _cuda.LAUNCHES["paged_fwd"] == before + 1
+    assert LAUNCHES_BY_QTOKENS[s] == by_q + 1
+    if kind == "bf16":
+        kp, vp, q = kp.float(), vp.float(), q.float()
+    ref = paged_attention_plain(q, kp, vp, tables, lens,
+                                kw.get("k_scales"), kw.get("v_scales"))
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and got.shape == q.shape
+    g4 = got.float() if s > 1 else got.float()[:, None]
+    r4 = ref.float() if s > 1 else ref.float()[:, None]
+    live = torch.ones(g4.shape[:2], dtype=torch.bool, device=cuda)
+    live[2, 0] = live[5, 0] = False                # length 0, token 0
+    if kind == "bf16":
+        # one bf16 ulp of |ref| (the output's rounding) and 2^-8 of the
+        # attention-weighted |V| (the probabilities' rounding before P.V)
+        pv = paged_attention_plain(q, kp, vp.abs(), tables, lens)
+        pv = pv if s > 1 else pv[:, None]
+        diff = (g4[live] - r4[live].to(qdt).float()).abs()
+        lim = 2.0 ** -7 * r4[live].abs() + 2.0 ** -8 * pv[live] + 1e-5
+        assert (diff <= lim).all(), (diff / lim).max()
+    else:
+        torch.testing.assert_close(g4[live], r4[live], atol=1e-5, rtol=0)
+    assert (g4[~live] == 0).all()
+    if kind == "bf16":
+        wide = paged_attention(q, kp, vp, tables, lens)
+        w4 = wide if s > 1 else wide[:, None]
+        torch.testing.assert_close(w4[live], r4[live], atol=1e-5, rtol=0)
+        assert (w4[~live] == 0).all()
+
+
+def test_paged_takes_strided_query_views(cuda):
+    """The decoder hands K5 (B, S, H, D) query views of a larger
+    projection; the output is the same as for a contiguous copy."""
+    from libsplinter_tpu_torch.ops.paged_attention import paged_attention
+
+    rng = np.random.default_rng(4)
+    (kp, vp), _, tables, lens = _paged_inputs(
+        rng, [7, 40, 1], kh=2, d=64, page=16, n_pages=4, kind="f32",
+        dev=cuda)
+    big = torch.from_numpy(rng.standard_normal((3, 4, 2 * 4 * 64))
+                           .astype(np.float32)).to(cuda)
+    q = big[..., :4 * 64].reshape(3, 4, 4, 64)
+    got = paged_attention(q, kp, vp, tables, lens)
+    want = paged_attention(q.contiguous(), kp, vp, tables, lens)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 def _lane(rng, n, d, dev):
     x = rng.integers(-4, 5, size=(n, d)).astype(np.float32) / 4.0
     return torch.from_numpy(x).to(dev)
