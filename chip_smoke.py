@@ -1,7 +1,7 @@
 """Drive the torch port's embed -> vector-commit -> search path, its
-dense completion lane and its continuous (block-paged) completion lane
-on one NVIDIA GPU, with every CUDA kernel held against its plain
-PyTorch version.
+dense completion lane, its continuous (block-paged) completion lane and
+the encoder's contrastive trainer on one NVIDIA GPU, with every CUDA
+kernel held against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -13,7 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
      and spills per kernel;
   3. kernels: each kernel against its plain version at the main path's
      shapes (K1 flash attention at B=8 S=2048 and B=32 S=512, bf16 and
-     f32; K3 cosine scores and K2 fused top-k over a 1,048,576 x 768
+     f32; K6, its backward, at B=8 S=2048 and B=16 S=512, bf16 and f32,
+     with SDPA's backward as the yardstick; K3 cosine scores and K2 fused top-k over a 1,048,576 x 768
      f32 lane; K4 causal prefill attention over a 2048-slot cache at
      B=8 S=1024, B=1 S=2048, a joiner at pos > 0 and GQA 12/4, bf16
      and f32, each with queries that see no key; K5 ragged paged
@@ -54,8 +55,19 @@ Phases (any failure exits non-zero and prints no result line):
      again over int8 and int4 pools (K5 launched, no abort, full token
      count); a paged prefill + decode step
      against the dense prefill + decode_one (cosine >= 0.999);
-  7. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
-     (K4) and 6 (K5), each counted from 0 just before its lane runs.
+  7. training: make_train_step(EncoderConfig()) (bf16 compute, f32
+     master weights, AdamW) on a fixed seeded batch of 16 pairs at
+     S=512, lengths 128-512: a warm-up step, 20 timed steps (K1 and K6
+     24 times a step; the loss must fall), a profiled step split by
+     kernel class, 2 steps of 4 pairs at S=2048; one f32 step's
+     gradients through K1/K6 against the plain attention (1e-4 of each
+     tensor's max |g|, TF32 off); save -> restore -> the next step's
+     loss within 1e-6 relative of the uninterrupted one's; the trained
+     weights served through EmbeddingModel against the trainer's own
+     forward;
+  8. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+     (K4), 6 (K5) and 7 (K6), each counted from 0 just before its path
+     runs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -82,6 +94,7 @@ MEM_BPS = 3.35e12
 
 REPLACES = {
     "flash_fwd": "libsplinter_tpu/ops/flash_attention.py:45",
+    "flash_bwd": "libsplinter_tpu/ops/flash_attention.py:101",
     "fused_topk": "libsplinter_tpu/ops/similarity.py:280",
     "cosine_scores": "libsplinter_tpu/ops/similarity.py:44",
     "causal_fwd": "libsplinter_tpu/ops/flash_attention.py:182",
@@ -89,6 +102,7 @@ REPLACES = {
 }
 SOURCES = {
     "flash_fwd": "libsplinter_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd": "libsplinter_tpu_torch/csrc/flash_bwd.cu",
     "fused_topk": "libsplinter_tpu_torch/csrc/fused_topk.cu",
     "cosine_scores": "libsplinter_tpu_torch/csrc/cosine_scores.cu",
     "causal_fwd": "libsplinter_tpu_torch/csrc/causal_fwd.cu",
@@ -97,13 +111,19 @@ SOURCES = {
 
 LANE_DIM = 768
 F32_ATOL = 1e-5
-BF16_ATOL = 2e-2
-# K5's bf16 outputs against the f32 plain version rounded to bf16, per
-# element: one bf16 ulp of |ref| (at most 2^-7 |ref|: the two may round
-# to neighbouring values) and, over bf16 pools, 2^-8 of the attention-
-# weighted mean of |V| (the probabilities are rounded to bf16, relative
-# error 2^-9, before P.V), plus F32_ATOL
-PAGED_ULP, PAGED_P_ROUND = 2.0 ** -7, 2.0 ** -8
+BF16_ATOL = 2e-2                 # K4's bf16 cases
+# K1's, K5's and K6's bf16 outputs against the f32 plain version on the
+# same values rounded to bf16, per element:
+#   - one bf16 ulp of |ref|, at most 2^-7 |ref| (bf16 keeps 8
+#     significant bits): the kernel's f32 value and the reference's may
+#     round to neighbouring bf16 values;
+#   - where the kernel rounds the probabilities to bf16 before P.V (K1;
+#     K5 over bf16 pools), each P_j moves by at most 2^-8 P_j (bf16's
+#     unit roundoff), so the output by at most 2^-8 sum_j P_j |V_j|:
+#     2^-8 of the attention-weighted mean of |V|.  K6 keeps P and dS in
+#     f32 and has no such term;
+#   - the f32 tolerance for the sums taken in another order.
+BF16_ULP, BF16_P_ROUND = 2.0 ** -7, 2.0 ** -8
 
 
 class PhaseError(RuntimeError):
@@ -205,15 +225,28 @@ def phase_flash(results):
                                                        "f32")):
             q, k, v, mask = _attn_case(b, s, dtype, seed=b + s)
             got = flash_attention(q, k, v, mask)
-            ref = flash_attention_plain(q.float(), k.float(), v.float(),
-                                        mask).to(dtype)
+            qf, kf, vf = q.float(), k.float(), v.float()
+            ref32 = flash_attention_plain(qf, kf, vf, mask)
+            if kind == "f32":
+                lim, atol = F32_ATOL, f"{F32_ATOL}"
+            else:                          # the bound beside BF16_ULP
+                lim = (BF16_ULP * ref32.abs() + BF16_P_ROUND
+                       * flash_attention_plain(qf, kf, vf.abs(), mask)
+                       + F32_ATOL)
+                atol = "2^-7 |ref| + 2^-8 P|V| + 1e-5"
+            diff = (got.float() - ref32.to(dtype).float()).abs()
             torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            atol = F32_ATOL if kind == "f32" else BF16_ATOL
-            check(err <= atol, f"K1 {kind} B={b} S={s}: max err {err}")
-            uniform = v[-1].float().sum(0) / s
-            uerr = (got[-1].float() - uniform[None]).abs().max().item()
-            check(uerr <= atol, f"K1 fully-masked row not uniform: {uerr}")
+            err = diff.max().item()
+            worst = (diff / lim).max().item()
+            check(worst <= 1.0, f"K1 {kind} B={b} S={s}: max err {err}, "
+                  f"{worst:.3f} of its limit {atol}")
+            # the fully-masked row: uniform over all S keys
+            uniform = vf[-1].sum(0) / s
+            udiff = (got[-1].float() - uniform[None]).abs()
+            ulim = lim if kind == "f32" else lim[-1]
+            check(bool((udiff <= ulim).all()),
+                  f"K1 fully-masked row not uniform: {udiff.max().item()}")
+            del qf, kf, vf, ref32, diff, udiff
             ms = cuda_ms(lambda: flash_attention(q, k, v, mask), reps=5)
             plain_ms = cuda_ms(
                 lambda: flash_attention_plain(q, k, v, mask), reps=3)
@@ -221,18 +254,113 @@ def phase_flash(results):
             bias = mask[:, None, None, :]
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=bias), reps=5)
-            elt = q.element_size()
-            nbytes = 4 * b * s * 12 * 64 * elt + b * s * 4
-            flops = 4.0 * b * 12 * s * s * 64
+            h, d = q.shape[2:]
+            nbytes = 4 * b * s * h * d * q.element_size() + b * s * 4
+            flops = 4.0 * b * h * s * s * d
             bms, by = bound(nbytes, flops, kind)
-            rec = {"shape": f"B={b} S={s} H=12 D=64 {kind}",
+            rec = {"shape": f"B={b} S={s} H={h} D={d} {kind}",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
-            log(f"K1 flash_fwd {rec['shape']}: err {err:.3g} (atol "
-                f"{atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            log(f"K1 flash_fwd {rec['shape']}: err {err:.3g} (limit "
+                f"{atol}; worst {worst:.3f} of it); kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, "
                 f"sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
             results.setdefault("flash_fwd", []).append(rec)
-            del q, k, v, got, ref, qt, kt, vt
+            del q, k, v, got, qt, kt, vt
+            torch.cuda.empty_cache()
+
+
+def _bwd_bound(shape, elt, kind):
+    """K6's least time at q's (B, S, H, D): the JAX kernel's five
+    S x S x D products, 10 B H S^2 D FLOPs; the bytes of q, k, v, o and
+    dO read, dq, dk and dv written, and the mask."""
+    b, s, h, d = shape
+    return bound(8.0 * b * s * h * d * elt + 4.0 * b * s,
+                 10.0 * b * h * s * s * d, kind)
+
+
+def phase_flash_bwd(results):
+    """K6 against its plain version at the training path's shapes, one
+    fully-masked batch row in each case; the yardstick is SDPA's
+    backward with the same mask (forward + backward minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from libsplinter_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_bwd_cuda)
+
+    for b, s in ((8, 2048), (16, 512)):
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32,
+                                                       "f32")):
+            q, k, v, mask = _attn_case(b, s, dtype, seed=3 * b + s)
+            g = torch.Generator(device="cuda").manual_seed(b * s)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            o = flash_attention(q, k, v, mask)
+            maskf = mask.float()
+            got = flash_bwd_cuda(q, k, v, o, do, maskf)
+            ref = flash_attention_bwd_plain(
+                *(t.float() for t in (q, k, v, o, do)), mask)
+            torch.cuda.synchronize()
+            err, worst, dead = 0.0, 0.0, 0.0
+            for name, gt, rt in zip(("dq", "dk", "dv"), got, ref):
+                check(bool(torch.isfinite(gt.float()).all()),
+                      f"K6 {kind} B={b} S={s}: non-finite {name}")
+                f32_tol = F32_ATOL * max(1.0, rt.abs().max().item())
+                lim = f32_tol if kind == "f32" \
+                    else BF16_ULP * rt.abs() + f32_tol
+                diff = (gt.float() - rt.to(dtype).float()).abs()
+                err = max(err, diff.max().item())
+                dead = max(dead, diff[-1].max().item())
+                w = (diff / lim).max().item()
+                worst = max(worst, w)
+                check(w <= 1.0, f"K6 {kind} B={b} S={s} {name}: max err "
+                      f"{diff.max().item()}, {w:.3f} of its limit")
+            # the dead row's P is uniform over the S keys, so its dV is
+            # the mean of dO over the queries
+            udv = do[-1].float().sum(0) / s
+            ulim = F32_ATOL * max(1.0, udv.abs().max().item())
+            if kind == "bf16":
+                ulim = BF16_ULP * udv.abs() + ulim
+            check(bool(((got[2][-1].float() - udv[None]).abs()
+                        <= ulim).all()),
+                  f"K6 {kind} B={b} S={s}: dead row's dV is not the mean "
+                  f"of dO")
+            del ref
+            ms = cuda_ms(lambda: flash_bwd_cuda(q, k, v, o, do, maskf),
+                         reps=3 if s > 512 else 10)
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, do, mask), reps=2)
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            bias = mask[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=bias)
+
+            def sdpa_fwd_bwd():
+                return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+            with torch.no_grad():
+                fwd_ms = cuda_ms(sdpa, reps=5)
+            lib_ms = cuda_ms(sdpa_fwd_bwd, reps=5) - fwd_ms
+            bms, by = _bwd_bound(q.shape, q.element_size(), kind)
+            limit = (f"{F32_ATOL} max(1, max|ref|)" if kind == "f32"
+                     else "2^-7 |ref| + 1e-5 max(1, max|ref|)")
+            h, d = q.shape[2:]
+            rec = {"shape": f"B={b} S={s} H={h} D={d} {kind}",
+                   "max_abs_err": err, "dead_row_err": dead, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "sdpa_fwd_ms": fwd_ms, "bound_ms": bms, "bound_by": by}
+            log(f"K6 flash_bwd {rec['shape']}: err {err:.3g} (limit "
+                f"{limit}; worst {worst:.3f} of it; fully-masked row "
+                f"{dead:.3g}, its dV the mean of dO); kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms "
+                f"(fwd+bwd minus fwd {fwd_ms:.3f}), bound {bms:.3f} ms "
+                f"({by})")
+            results.setdefault("flash_bwd", []).append(rec)
+            del q, k, v, o, do, got, qt, kt, vt, dot
             torch.cuda.empty_cache()
 
 
@@ -461,10 +589,10 @@ def phase_paged(results):
             atol = f"{F32_ATOL}"
             check(err <= F32_ATOL, f"K5 {kind} S={s} KH={kh}: max err {err}")
         else:
-            lim = PAGED_ULP * by_token(ref32)[sees].abs() + F32_ATOL
+            lim = BF16_ULP * by_token(ref32)[sees].abs() + F32_ATOL
             atol = "2^-7 |ref|"
             if kind == "bf16":
-                lim += PAGED_P_ROUND * by_token(paged_attention_plain(
+                lim += BF16_P_ROUND * by_token(paged_attention_plain(
                     q.float(), fk, fv.abs(), tables, lengths))[sees]
                 atol += " + 2^-8 P|V|"
             worst = (diff / lim).max().item()
@@ -901,6 +1029,11 @@ def _kernel_class(name: str) -> str:
         return "K4 causal_fwd"
     if "paged_fwd_kernel" in name:
         return "K5 paged_fwd"
+    if any(t in name for t in ("bwd_stats_kernel", "bwd_dkdv_kernel",
+                               "bwd_dq_kernel")):
+        return "K6 flash_bwd"
+    if "multi_tensor_apply" in name:
+        return "optimizer (foreach AdamW)"
     if any(t in name for t in ("gemm", "cutlass", "sm90_", "cublas",
                                "nvjet")):
         return "GEMM (cuBLAS)"
@@ -1410,6 +1543,199 @@ def phase_continuous(card, timings):
             Store.unlink(name)
 
 
+# -- phase 7: the trainer -----------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 512, 20
+
+
+def _train_batch(rng, vocab, b, s, lo):
+    """b pairs at width s, lengths in [lo, s]; ids_b is ids_a with ~10%
+    of its tokens replaced (the same lengths).  Token ids follow Zipf's
+    law (exponent 1.1), as words of text do: with uniform ids every pair
+    of texts shares almost no token, a random-weight encoder tells them
+    apart at once and the f32 loss underflows to 0 within a few steps;
+    shared frequent tokens keep the in-batch negatives close."""
+    def tokens(shape):
+        return np.minimum(rng.zipf(1.1, shape), vocab) - 1
+
+    ids = tokens((b, s))
+    ids_b = ids.copy()
+    swap = rng.random(ids.shape) < 0.1
+    ids_b[swap] = tokens(int(swap.sum()))
+    mask = np.arange(s)[None] < rng.integers(lo, s + 1, b)[:, None]
+    return {"ids_a": ids, "mask_a": mask, "ids_b": ids_b, "mask_b": mask}
+
+
+def _f32_grads_match_plain(state, batch, cfg):
+    """One f32 step's gradients through K1/K6 against the same step with
+    the plain attention (flash_min_seq=0), on the trainer's current
+    weights: each tensor within 1e-4 of its largest |g| (TF32 is off)."""
+    import torch
+
+    from libsplinter_tpu_torch.models.encoder import Encoder
+    from libsplinter_tpu_torch.ops import _cuda
+    from libsplinter_tpu_torch.parallel import loss_fn
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    sd = state.module.state_dict()
+    grads, launches = [], []
+    for c in (cfg32, dataclasses.replace(cfg32, flash_min_seq=0)):
+        with torch.device("cuda"):
+            module = Encoder(c)
+        module.load_state_dict(sd)
+        _cuda.LAUNCHES.reset()
+        loss_fn(module, batch).backward()
+        launches.append(_cuda.LAUNCHES["flash_bwd"])
+        grads.append({n: p.grad for n, p in module.named_parameters()})
+        del module
+    check(launches == [2 * cfg.layers, 0],
+          f"K6 launches in the f32 steps (flash, plain): {launches}")
+    worst, where = 0.0, ""
+    for name, gp in grads[1].items():
+        w = ((grads[0][name] - gp).abs().max() / gp.abs().max()).item()
+        if w > worst:
+            worst, where = w, name
+    check(worst <= 1e-4, f"f32 gradients, K1/K6 vs plain attention: "
+          f"{where} off by {worst:.3g} of its max |g| (> 1e-4)")
+    return worst, where
+
+
+def phase_train(card, timings):
+    """The encoder's contrastive trainer at full width on the card, then
+    a checkpoint round trip and the trained weights served through
+    EmbeddingModel."""
+    import torch
+
+    from libsplinter_tpu_torch.models import EmbeddingModel, EncoderConfig
+    from libsplinter_tpu_torch.ops import _cuda
+    from libsplinter_tpu_torch.parallel import checkpoint, make_train_step
+
+    cfg = EncoderConfig()
+    per_step = 2 * cfg.layers                # two towers, every layer
+    init_fn, step_fn = make_train_step(cfg)
+    rng = np.random.default_rng(23)
+    batch = _train_batch(rng, cfg.vocab_size, TRAIN_B, TRAIN_S, 128)
+    t0 = time.perf_counter()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0),
+                    batch["ids_a"], batch["mask_a"])
+    state, loss = step_fn(state, batch)                  # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    log(f"trainer: EncoderConfig() full width (12 layers, hidden 768, "
+        f"vocab {cfg.vocab_size}, bf16 compute, f32 master weights, "
+        f"AdamW), init + warm-up step {time.perf_counter() - t0:.2f}s")
+
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.reset()                       # the main path
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, loss = step_fn(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts["flash_bwd"] == per_step * TRAIN_STEPS
+          and counts["flash_fwd"] == per_step * TRAIN_STEPS,
+          f"K1/K6 launches over {TRAIN_STEPS} steps: {counts}")
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    real = int(batch["mask_a"].sum() + batch["mask_b"].sum())
+    padded = 2 * TRAIN_B * TRAIN_S
+    log(f"train {TRAIN_B} pairs x S={TRAIN_S}: {TRAIN_STEPS} steps in "
+        f"{wall:.3f}s = {TRAIN_STEPS / wall:.3f} steps/s, "
+        f"{padded * TRAIN_STEPS / wall:.0f} tokens/s ({real * TRAIN_STEPS / wall:.0f} "
+        f"unpadded), peak {peak_gb:.2f} GB allocated; loss "
+        f"{losses[0]:.6g} -> {losses[-1]:.6g}; K6 {counts['flash_bwd']} "
+        f"launches ({per_step} a step) [{card}]")
+    timings["train"] = {"steps": TRAIN_STEPS, "wall_s": wall,
+                        "steps_per_s": TRAIN_STEPS / wall,
+                        "tokens_per_s": padded * TRAIN_STEPS / wall,
+                        "unpadded_tokens_per_s": real * TRAIN_STEPS / wall,
+                        "peak_gb": peak_gb, "loss_first": losses[0],
+                        "loss_last": losses[-1]}
+
+    def one_step():
+        nonlocal state
+        state, _ = step_fn(state, batch)
+        return 1
+
+    timings["train_profile"] = _profile_drain(one_step, 1,
+                                              wall / TRAIN_STEPS, card)
+
+    long = _train_batch(rng, cfg.vocab_size, 4, 2048, 512)
+    state, _ = step_fn(state, long)              # allocator, cuBLAS shapes
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    long_losses = []
+    for _ in range(2):
+        state, loss = step_fn(state, long)
+        long_losses.append(float(loss))
+    long_s = (time.perf_counter() - t0) / 2
+    check(all(np.isfinite(long_losses)), f"S=2048 losses {long_losses}")
+    check(_cuda.LAUNCHES["flash_bwd"] == 2 * per_step,
+          f"K6 launches in 2 steps at S=2048: {_cuda.LAUNCHES['flash_bwd']}")
+    log(f"train 4 pairs x S=2048: {long_s * 1e3:.1f} ms a step "
+        f"({2 * 4 * 2048 / long_s:.0f} tokens/s), losses {long_losses} "
+        f"[{card}]")
+    timings["train_2048"] = {"step_ms": long_s * 1e3}
+
+    worst, where = _f32_grads_match_plain(
+        state, {k: x[:8] for k, x in batch.items()}, cfg)
+    log(f"f32 step, 8 pairs x S={TRAIN_S}: gradients through K1/K6 vs "
+        f"the plain attention within {worst:.3g} of each tensor's max |g| "
+        f"(worst {where}; limit 1e-4, TF32 off)")
+    timings["train_f32_vs_plain"] = worst
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="sptk-ckpt-")
+    try:
+        t0 = time.perf_counter()
+        saved = checkpoint.save(state, tmp)
+        save_s = time.perf_counter() - t0
+        state, loss_a = step_fn(state, batch)    # uninterrupted
+        like = init_fn(torch.Generator(device="cuda").manual_seed(1),
+                       batch["ids_a"], batch["mask_a"])
+        t0 = time.perf_counter()
+        resumed = checkpoint.restore(tmp, like)
+        restore_s = time.perf_counter() - t0
+        check(resumed.step == saved == state.step - 1,
+              f"restored step {resumed.step}, saved {saved}")
+        resumed, loss_b = step_fn(resumed, batch)
+        la, lb = float(loss_a), float(loss_b)
+        rel = abs(la - lb) / abs(la)
+        check(rel <= 1e-6, f"resumed loss {lb} vs uninterrupted {la}")
+        log(f"checkpoint: step {saved} saved in {save_s:.2f}s, restored "
+            f"in {restore_s:.2f}s; the next step's loss {lb:.9g} vs "
+            f"uninterrupted {la:.9g} (relative {rel:.3g}, limit 1e-6)")
+        del like, resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the trained weights served: EmbeddingModel's bf16 copy against the
+    # trainer module's own forward (the same bf16 weights and kernels)
+    n = 8
+    ids, mask = batch["ids_a"][:n], batch["mask_a"][:n]
+    model = EmbeddingModel(cfg, params=state.module.state_dict(),
+                           device="cuda")
+    got = model.encode_ids(ids, mask.sum(axis=1))
+    with torch.no_grad():
+        want = state.module(torch.from_numpy(ids).cuda(),
+                            torch.from_numpy(mask).cuda()).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    check(got.shape == (n, cfg.out_dim) and np.isfinite(got).all()
+          and err <= F32_ATOL,
+          f"served embeddings vs the trainer's forward: max err {err}")
+    log(f"served: EmbeddingModel on the trained weights, {n} texts at "
+        f"bucket {TRAIN_S}: max abs err {err:.3g} against the trainer's "
+        f"forward (limit {F32_ATOL})")
+    del state, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _lane_slots(requested: int) -> int:
     """The requested slot count, cut to 262,144 when the temp dir
     cannot hold the file-backed store (~11.5 KB per slot mapped)."""
@@ -1449,6 +1775,7 @@ def main() -> int:
         name, count, card = phase_device()
         phase_build()
         phase_flash(results)
+        phase_flash_bwd(results)
         phase_search_kernels(results, 1 << 20)
         phase_causal(results)
         phase_paged(results)
@@ -1456,6 +1783,7 @@ def main() -> int:
         counts["causal_fwd"] = phase_completion(card,
                                                 timings)["causal_fwd"]
         counts["paged_fwd"] = phase_continuous(card, timings)["paged_fwd"]
+        counts["flash_bwd"] = phase_train(card, timings)["flash_bwd"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1469,14 +1797,16 @@ def main() -> int:
     # the record per kernel: its main-path shape (bf16 K1 at B=8 S=2048;
     # K2 at Q=8 k=16 and K3 at Q=8, the searcher's batches of phase 4;
     # K4 at the bucket-1024 batch of phase 5; K5 at a decode step of the
-    # continuous lane's 32 rows of phase 6)
+    # continuous lane's 32 rows of phase 6; K6 at the training batch of
+    # phase 7, one tower of 16 x 512)
     main_shape = {"flash_fwd": "B=8 S=2048 H=12 D=64 bf16",
+                  "flash_bwd": f"B={TRAIN_B} S={TRAIN_S} H=12 D=64 bf16",
                   "fused_topk": f"N={1 << 20} D={LANE_DIM} Q=8 k=16 f32",
                   "cosine_scores": f"N={1 << 20} D={LANE_DIM} Q=8 f32",
                   "causal_fwd": CAUSAL_MAIN,
                   "paged_fwd": PAGED_MAIN}
     kernels = []
-    for kname in ("flash_fwd", "fused_topk", "cosine_scores",
+    for kname in ("flash_fwd", "flash_bwd", "fused_topk", "cosine_scores",
                   "causal_fwd", "paged_fwd"):
         rec = next(r for r in results[kname]
                    if r["shape"] == main_shape[kname])

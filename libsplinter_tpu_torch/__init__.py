@@ -8,9 +8,13 @@ nothing from it (nor JAX).  Layers mirror the reference layout:
   store.py          Python binding (ctypes over the C ABI; a copy)
   models/           PyTorch encoder + tokenizers
   ops/              hand-written CUDA kernels (csrc/) with their plain
-                    PyTorch versions: flash attention, cosine scores,
-                    fused streaming top-k
-  engine/           event-driven daemons: the embedder and the searcher
+                    PyTorch versions: flash attention (forward and
+                    backward), cosine scores, fused streaming top-k,
+                    causal prefill and paged decode attention
+  engine/           event-driven daemons: the embedder, the searcher
+                    and the completer
+  parallel/         the encoder's contrastive trainer and its
+                    checkpoints (one card)
   obs/, utils/      telemetry, tracing, fault injection
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

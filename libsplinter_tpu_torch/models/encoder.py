@@ -9,7 +9,12 @@ package's flax encoder:
     with optional matryoshka truncation;
   - bfloat16 activations and matmul weights on the card (layer norms
     keep f32 parameters and compute in f32, as flax's LayerNorm does),
-    float32 output.
+    float32 output;
+  - flax's dtype / param_dtype split: parameters are created in f32 and
+    the projections and embeddings compute in ``cfg.dtype``, so a
+    trainer (parallel/train.py) updates f32 master weights while the
+    forward runs in bf16.  Serving casts the module's matmul weights
+    to bf16 once, which makes the per-call cast a no-op.
 
 Buckets at or above ``flash_min_seq`` attend through kernel K1
 (ops/flash_attention.py); shorter ones through the plain masked
@@ -108,6 +113,32 @@ class LayerNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+class Dense(nn.Linear):
+    """flax's Dense(dtype=...): input, weight and bias cast to `dtype`
+    for the product, whatever the parameters' own dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Embedding):
+    """flax's Embed(dtype=...): the table cast to `dtype`, then the
+    gather."""
+
+    def __init__(self, num: int, dim: int, dtype: torch.dtype):
+        super().__init__(num, dim)
+        self.dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.dtype))
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -116,8 +147,8 @@ class SelfAttention(nn.Module):
                 "weights_int8 (per-channel int8 encoder weights) is not "
                 "yet ported to the torch package")
         self.cfg = cfg
-        self.qkv = nn.Linear(cfg.hidden, 3 * cfg.hidden)
-        self.out = nn.Linear(cfg.hidden, cfg.hidden)
+        self.qkv = Dense(cfg.hidden, 3 * cfg.hidden, cfg.dtype)
+        self.out = Dense(cfg.hidden, cfg.hidden, cfg.dtype)
 
     def forward(self, x, mask, rotary=None):
         cfg = self.cfg
@@ -144,9 +175,9 @@ class Mlp(nn.Module):
         super().__init__()
         self.variant = cfg.variant
         if cfg.variant == "nomic":
-            self.gate = nn.Linear(cfg.hidden, cfg.mlp_dim)
-        self.up = nn.Linear(cfg.hidden, cfg.mlp_dim)
-        self.down = nn.Linear(cfg.mlp_dim, cfg.hidden)
+            self.gate = Dense(cfg.hidden, cfg.mlp_dim, cfg.dtype)
+        self.up = Dense(cfg.hidden, cfg.mlp_dim, cfg.dtype)
+        self.down = Dense(cfg.mlp_dim, cfg.hidden, cfg.dtype)
 
     def forward(self, x):
         if self.variant == "nomic":
@@ -179,9 +210,9 @@ class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.hidden)
+        self.tok_emb = Embed(cfg.vocab_size, cfg.hidden, cfg.dtype)
         if cfg.variant == "bert":
-            self.pos_emb = nn.Embedding(cfg.max_len, cfg.hidden)
+            self.pos_emb = Embed(cfg.max_len, cfg.hidden, cfg.dtype)
         self.ln_emb = LayerNorm(cfg.hidden, cfg.layer_norm_eps)
         for i in range(cfg.layers):
             self.add_module(f"layer_{i}", EncoderLayer(cfg))
@@ -272,6 +303,28 @@ def params_from_jax(flax_params, cfg: EncoderConfig) -> dict:
     out = state_dict_from_flax(flax_params)
     if cfg.variant == "nomic":
         out.pop("pos_emb.weight", None)
+    return out
+
+
+def params_to_jax(module: Encoder) -> dict[str, np.ndarray]:
+    """The bridge back: this Encoder's parameters under the JAX
+    package's flat keys and layouts (``params/layer_0/attn/qkv/kernel``
+    as (in, out), ``.../embedding``, norm ``.../scale``) as f32 numpy —
+    what its ``save_params_npz`` writes for a flax tree."""
+    out: dict[str, np.ndarray] = {}
+    for name, m in module.named_modules():
+        if isinstance(m, nn.Linear):
+            leaves = {"kernel": m.weight.T, "bias": m.bias}
+        elif isinstance(m, nn.Embedding):
+            leaves = {"embedding": m.weight}
+        elif isinstance(m, LayerNorm):
+            leaves = {"scale": m.weight, "bias": m.bias}
+        else:
+            continue
+        prefix = "/".join(["params", *name.split(".")])
+        for leaf, t in leaves.items():
+            out[f"{prefix}/{leaf}"] = np.ascontiguousarray(
+                t.detach().float().cpu().numpy())
     return out
 
 
@@ -436,6 +489,40 @@ def load_safetensors_params(path: str, cfg: EncoderConfig) -> dict:
         sd[f"{p}.ln_mlp.bias"] = take(names["ln_mlp.bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in sd.items()}
+
+
+def export_safetensors_params(params: dict, cfg: EncoderConfig,
+                              path: str) -> None:
+    """Write an Encoder state_dict (a trainer's f32 parameters, say) as
+    the HF-style checkpoint ``load_safetensors_params`` reads back:
+    nomic_bert naming for the nomic variant, bert-base naming (q, k, v
+    split) for bert — the inverse the JAX package's
+    ``export_safetensors_params`` is of its loader."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in params.items()}
+    nomic = cfg.variant == "nomic"
+    alias = 0 if nomic else 1       # which of _hf_layer_names' candidates
+    out = {_HF_TOP_NAMES["tok_emb"][0]: sd["tok_emb.weight"]}
+    if not nomic:
+        out[_HF_TOP_NAMES["pos_emb"][0]] = sd["pos_emb.weight"]
+    for leaf in ("weight", "bias"):
+        out[_HF_TOP_NAMES[f"ln_emb.{leaf}"][alias]] = sd[f"ln_emb.{leaf}"]
+    mlps = ("gate", "up", "down") if nomic else ("up", "down")
+    for i in range(cfg.layers):
+        names, p = _hf_layer_names(i), f"layer_{i}"
+        slots = {"attn_out": f"{p}.attn.out", "ln_attn": f"{p}.ln_attn",
+                 "ln_mlp": f"{p}.ln_mlp"}
+        slots.update({m: f"{p}.mlp.{m}" for m in mlps})
+        for slot, key in slots.items():
+            for leaf in ("weight", "bias"):
+                out[names[f"{slot}.{leaf}"][alias]] = sd[f"{key}.{leaf}"]
+        for leaf in ("weight", "bias"):
+            fused = sd[f"{p}.attn.qkv.{leaf}"]
+            if nomic:
+                out[names[f"qkv.{leaf}"][0]] = fused
+            else:
+                for x, part in zip("qkv", np.split(fused, 3, axis=0)):
+                    out[names[f"{x}.{leaf}"][0]] = part
+    write_safetensors(path, out)
 
 
 # -- the serving front end ----------------------------------------------------

@@ -29,6 +29,7 @@ BUILD = _PKG / "build"
 # kernel name -> source file; each builds to build/libsptk_<name>.so
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
     "cosine_scores": "cosine_scores.cu",
     "fused_topk": "fused_topk.cu",
     "causal_fwd": "causal_fwd.cu",
@@ -46,6 +47,10 @@ _SIGNATURES = {
         "sptk_flash_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32,
                            I64, I64, I64, I64, I64, I64, I64, I64, I64,
                            I64, I64, I64, F32, P],
+    },
+    "flash_bwd": {
+        "sptk_flash_bwd": [P, P, P, P, P, P, P, P, P, P, I32, I32, I32,
+                           I32, I32, C.POINTER(I64), F32, P],
     },
     "cosine_scores": {
         "sptk_cosine_scores": [P, I64, I32, P, I32, P, P, P, I32, I32, P],
@@ -187,6 +192,12 @@ def launch(name: str, fn: str, *args) -> None:
         msg = so.sptk_error_string(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
     LAUNCHES.bump(name)
+
+
+def int64_array(values) -> C.Array:
+    """A host array of int64 for a ``POINTER(c_longlong)`` argument
+    (the C side reads it before it returns)."""
+    return (C.c_longlong * len(values))(*values)
 
 
 def stream_handle(device) -> int:

@@ -1,6 +1,6 @@
 """Blockwise (flash-style) attention for long buckets: the encoder's
-bidirectional attention (kernel K1) and the decoder's causal prefill
-attention over its KV cache (kernel K4).
+bidirectional attention (kernel K1) and its backward (kernel K6), and
+the decoder's causal prefill attention over its KV cache (kernel K4).
 
 The plain attention materialises (B, H, S, S) float32 logits (the
 decoder's: (B, H, S, T) over the whole cache) in device memory — at
@@ -9,20 +9,25 @@ size long before the arithmetic saturates.  Buckets at or above the
 config's ``flash_min_seq`` therefore attend through K1
 (csrc/flash_fwd.cu) or K4 (csrc/causal_fwd.cu): K/V stream through
 shared memory in tiles under an online f32 softmax, and nothing
-quadratic reaches device memory.
+quadratic reaches device memory.  Training differentiates K1 through
+an autograd Function whose backward is K6 (csrc/flash_bwd.cu): it
+recomputes the probabilities tile by tile from per-row statistics, so
+the backward is as linear in device memory as the forward.
 
 Layout and semantics follow the JAX package's ``flash_attention`` and
 ``causal_flash_attention``: (B, S, H, D) at the public functions (K1
 pads S to a multiple of min(block_q, S) with masked keys, as the JAX
-layout helper does), masked logits at the finite ``NEG_INF`` so a row
-with no visible key (a padded batch row, a left-pad query) is a
-uniform average instead of NaN.  Those rows are don't-care values —
-the encoder's pooling multiplies them by a zero mask, and the decoder
-masks the pad slots its next layer writes them into.
+layout helper does, and the backward runs on the same padded layout),
+masked logits at the finite ``NEG_INF`` so a row with no visible key
+(a padded batch row, a left-pad query) is a uniform average instead
+of NaN.  Those rows are don't-care values — the encoder's pooling
+multiplies them by a zero mask, and the decoder masks the pad slots
+its next layer writes them into.
 
 On CPU tensors the functions run the plain PyTorch math; on CUDA
-tensors they launch their kernel or raise.  Forward only: the port has
-no training path yet.
+tensors they launch their kernel or raise.  Under ``no_grad`` (the
+serving path) ``flash_attention`` launches K1 alone, as it always
+has.
 """
 from __future__ import annotations
 
@@ -115,18 +120,119 @@ def flash_fwd_cuda(q, k, v, maskf):
     return out
 
 
+def flash_attention_bwd_plain(q, k, v, o, do, mask):
+    """K6's plain PyTorch version: the JAX kernel's formulas, in f32,
+    on the padded layout the forward ran on.  With P =
+    softmax(mask(Q K^T * scale)) and D_i = rowsum(dO * O):
+    dV = P^T dO, dS = P * (dO V^T - D) * scale, dQ = dS K,
+    dK = dS^T Q.
+
+    q/k/v/o/do: (B, S', H, D), o the forward's output; mask: (B, S')
+    bool.  Returns (dq, dk, dv) in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    d_i = (dof * of).sum(dim=-1).transpose(1, 2)[..., None]   # (B,H,S,1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - d_i) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def flash_bwd_cuda(q, k, v, o, do, maskf):
+    """Launch K6.  q/k/v/o/do: (B, S, H, D) CUDA f32 or bf16 views of
+    one dtype with the last dim contiguous, o the forward's output;
+    maskf: (B, S) f32 key validity.  Returns new (dq, dk, dv) tensors
+    in q's dtype.  One call counts as one launch of ``flash_bwd``
+    (it runs three kernels: row statistics, dK/dV, dQ).
+
+    Replaces libsplinter_tpu/ops/flash_attention.py `_mha_bwd_kernel`;
+    bound on an H100 by 10 * B * H * S^2 * D FLOPs, run here as f32 FMA
+    from shared memory (see the source's header for the design)."""
+    ts = (q, k, v, o, do)
+    if not all(t.is_cuda for t in ts) or not maskf.is_cuda:
+        raise ValueError("flash_bwd_cuda needs CUDA tensors")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"flash_bwd_cuda: dtypes "
+                         f"{[str(t.dtype) for t in ts]} (f32 or bf16, "
+                         f"all equal)")
+    if maskf.dtype != torch.float32:
+        raise ValueError("flash_bwd_cuda: mask must be f32")
+    if q.dim() != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"flash_bwd_cuda: shapes "
+                         f"{[tuple(t.shape) for t in ts]}")
+    b, s, h, d = q.shape
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_cuda: head dim {d} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if maskf.shape != (b, s):
+        raise ValueError(f"flash_bwd_cuda: mask {tuple(maskf.shape)}")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("flash_bwd_cuda: last dim must be contiguous")
+    maskf = maskf.contiguous()
+    stats = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    strides = []
+    for t in ts + grads:
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    _cuda.launch("flash_bwd", "sptk_flash_bwd",
+                 *(t.data_ptr() for t in ts), maskf.data_ptr(),
+                 stats.data_ptr(), *(t.data_ptr() for t in grads),
+                 b, s, h, d, int(q.dtype == torch.bfloat16),
+                 _cuda.int64_array(strides), 1.0 / math.sqrt(d),
+                 _cuda.stream_handle(q.device))
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K6 backward on CUDA tensors; the plain versions of
+    both on CPU tensors.  The padded q, k, v, mask and output are
+    saved, so the backward runs on the layout the forward ran on (the
+    JAX package's ``_to_kernel_layout`` warns that padded gradients
+    diverge otherwise); gradients come back trimmed to S."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, block_q):
+        s = q.shape[1]
+        q, k, v, mask, pad = _pad_seq(q, k, v, mask, block_q)
+        out = (flash_fwd_cuda(q, k, v, mask.to(torch.float32)) if q.is_cuda
+               else _mha_plain(q, k, v, mask))
+        ctx.save_for_backward(q, k, v, mask, out)
+        ctx.s = s
+        return out[:, :s] if pad else out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, out = ctx.saved_tensors
+        s, pad = ctx.s, q.shape[1] - ctx.s
+        # autograd may hand back a strided or expanded dO
+        g = F.pad(g, (0, 0, 0, 0, 0, pad)) if pad else g.contiguous()
+        if q.is_cuda:
+            grads = flash_bwd_cuda(q, k, v, out, g, mask.to(torch.float32))
+        else:
+            grads = flash_attention_bwd_plain(q, k, v, out, g, mask)
+        if pad:
+            grads = tuple(t[:, :s] for t in grads)
+        return (*grads, None, None)
+
+
 def flash_attention(q, k, v, mask, *, block_q: int = 256):
     """Bidirectional masked attention without device-quadratic logits.
 
     q/k/v: (B, S, H, D); mask: (B, S) bool key validity.  Returns
     (B, S, H, D) in q's dtype.  CUDA tensors run kernel K1; CPU tensors
-    run the identical plain math (``flash_attention_plain``)."""
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, mask, block_q=block_q)
-    s = q.shape[1]
-    q, k, v, mask, pad = _pad_seq(q, k, v, mask, block_q)
-    out = flash_fwd_cuda(q, k, v, mask.to(torch.float32))
-    return out[:, :s] if pad else out
+    run the identical plain math (``flash_attention_plain``).  When
+    grad is enabled and an input requires it, the call is
+    differentiable: its backward runs K6 (``flash_attention_bwd_plain``
+    on CPU tensors); otherwise autograd records nothing and the call is
+    K1 alone."""
+    return _FlashAttention.apply(q, k, v, mask, block_q)
 
 
 # -- K4: decoder-prefill causal attention -------------------------------------

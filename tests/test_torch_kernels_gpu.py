@@ -9,7 +9,11 @@ running only the port need not have; this file imports no JAX).
 Tolerances: f32 attention atol 1e-5 (online vs one-pass softmax sums
 in another order); bf16 attention atol 2e-2 against the plain math run
 in f32 on the same bf16 inputs (the kernel rounds probabilities to
-bf16 before P.V, and the output to bf16); cosine scores atol 1e-5 on
+bf16 before P.V, and the output to bf16); K6 (the attention backward)
+in f32 within 1e-5 * max(1, max |ref|), and in bf16 per element within
+one bf16 ulp of the f32 reference (2^-7 |ref|: the kernel's f32 result
+and the reference's may round to neighbouring bf16 values; K6 keeps P
+and dS in f32, so nothing else is rounded) plus that f32 tolerance; cosine scores atol 1e-5 on
 random f32 data.  Top-k inputs are small integers over 4, so every dot
 product and squared norm is exact in f32 in any summation order: the
 kernel's scores then equal the plain version's bit for bit, and the
@@ -21,8 +25,9 @@ import torch
 
 from libsplinter_tpu_torch.ops import _cuda
 from libsplinter_tpu_torch.ops.flash_attention import (
-    causal_attention_plain, causal_flash_attention, flash_attention,
-    flash_attention_plain)
+    _pad_seq, causal_attention_plain, causal_flash_attention,
+    flash_attention, flash_attention_bwd_plain, flash_attention_plain,
+    flash_bwd_cuda)
 from libsplinter_tpu_torch.ops.similarity import (
     _cosine_scores_plain, _fused_topk_plain, _stable_topk,
     cosine_scores_cuda, fused_topk_cuda, topk_program)
@@ -84,6 +89,73 @@ def test_flash_takes_strided_views(cuda):
     got = flash_attention(q, k, v, mask)
     ref = flash_attention_plain(q, k, v, mask)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+def _bwd_check(got, ref32, dtype, what):
+    """K6's tolerance (module docstring): f32 1e-5 * max(1, max|ref|);
+    bf16 adds one bf16 ulp of |ref| per element."""
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref32):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        f32_tol = 1e-5 * max(1.0, r.abs().max().item())
+        lim = f32_tol if dtype == torch.float32 \
+            else 2.0 ** -7 * r.abs() + f32_tol
+        err = (g.float() - r.to(dtype).float()).abs()
+        assert (err <= lim).all(), f"{what} {name}: max err {err.max()}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(64, 16), (200, 32), (512, 64),
+                                 (130, 128)])
+def test_flash_bwd_matches_plain(cuda, dtype, s, d):
+    """K6 on the padded layout, a fully-masked batch row included
+    (uniform P over S): the kernel against its plain version in f32 on
+    the same values."""
+    rng = np.random.default_rng(s * 11 + d)
+    q, k, v, mask = _attn_inputs(rng, 3, s, 2, d, dtype, cuda)
+    q, k, v, mask, _ = _pad_seq(q, k, v, mask, 256)
+    o = flash_attention(q, k, v, mask)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)
+                          ).to(cuda, dtype)
+    before = _cuda.LAUNCHES["flash_bwd"]
+    got = flash_bwd_cuda(q, k, v, o, do, mask.float())
+    assert _cuda.LAUNCHES["flash_bwd"] == before + 1
+    ref = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
+                                    mask)
+    torch.cuda.synchronize()
+    _bwd_check(got, ref, dtype, f"S={s} D={d}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_runs_k1_and_k6(cuda, dtype):
+    """torch.autograd through flash_attention on the card: K1 forward,
+    K6 backward, S = 300 padded to 512, q/k/v split from one fused
+    projection and a strided dO; gradients trimmed to S against the
+    plain backward on the padded layout."""
+    rng = np.random.default_rng(9)
+    b, s, h, d = 2, 300, 2, 64
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d))
+                           .astype(np.float32)).to(cuda, dtype)
+    qkv.requires_grad_(True)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    mask = torch.from_numpy(np.arange(s)[None] < np.array([[s], [170]])
+                            ).to(cuda)
+    fwd, bwd = _cuda.LAUNCHES["flash_fwd"], _cuda.LAUNCHES["flash_bwd"]
+    out = flash_attention(q, k, v, mask)
+    big = torch.from_numpy(rng.standard_normal((b, s, h, 2 * d))
+                           .astype(np.float32)).to(cuda, dtype)
+    g = big[..., :d]                                  # strided dO
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert _cuda.LAUNCHES["flash_fwd"] == fwd + 1
+    assert _cuda.LAUNCHES["flash_bwd"] == bwd + 1
+    qp, kp, vp, mp, pad = _pad_seq(q.detach(), k.detach(), v.detach(),
+                                   mask, 256)
+    assert pad == 212
+    op = flash_attention(qp, kp, vp, mp)     # the output K6 was given
+    gp = torch.nn.functional.pad(g.float(), (0, 0, 0, 0, 0, pad))
+    ref = flash_attention_bwd_plain(qp.float(), kp.float(), vp.float(),
+                                    op.float(), gp, mp)
+    torch.cuda.synchronize()
+    _bwd_check(grads, [r[:, :s] for r in ref], dtype, "autograd")
 
 
 def _causal_inputs(rng, b, s, t, h, kh, d, dtype, dev):
