@@ -9,12 +9,16 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. device: the card's name and count, nvidia-smi's name + power limit;
   2. build: compile the kernels (csrc/*.cu, one nvcc per source, all
-     started together), print the build seconds and ptxas' registers
-     and spills per kernel;
+     started together), print the build seconds, ptxas' registers and
+     spills per kernel of K1/K6 (a summary for the others; the D = 64
+     tensor-core kernels must not spill) and the HMMA/HGMMA count of
+     K1's and K6's SASS (cuobjdump -sass; must be above 0);
   3. kernels: each kernel against its plain version at the main path's
      shapes (K1 flash attention at B=8 S=2048 and B=32 S=512, bf16 and
-     f32; K6, its backward, at B=8 S=2048 and B=16 S=512, bf16 and f32,
-     with SDPA's backward as the yardstick; K3 cosine scores and K2 fused top-k over a 1,048,576 x 768
+     f32, its row max/sum for K6 against the plain helper and its output
+     identical with and without them; K6, its backward, at B=8 S=2048
+     and B=16 S=512, bf16 and f32, with SDPA's backward as the
+     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores and K2 fused top-k over a 1,048,576 x 768
      f32 lane; K4 causal prefill attention over a 2048-slot cache at
      B=8 S=1024, B=1 S=2048, a joiner at pos > 0 and GQA 12/4, bf16
      and f32, each with queries that see no key; K5 ragged paged
@@ -78,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -120,8 +125,11 @@ BF16_ATOL = 2e-2                 # K4's bf16 cases
 #   - where the kernel rounds the probabilities to bf16 before P.V (K1;
 #     K5 over bf16 pools), each P_j moves by at most 2^-8 P_j (bf16's
 #     unit roundoff), so the output by at most 2^-8 sum_j P_j |V_j|:
-#     2^-8 of the attention-weighted mean of |V|.  K6 keeps P and dS in
-#     f32 and has no such term;
+#     2^-8 of the attention-weighted mean of |V|.  K6 rounds P and dS
+#     to bf16 before its products, as the TPU kernel's default-precision
+#     dots round their f32 inputs, so its gradients move by at most 2^-8
+#     of the same sums over absolute values: |P|^T |dO| for dv,
+#     |dS|^T |Q| for dk, |dS| |K| for dq (flash_bwd_plain_and_terms);
 #   - the f32 tolerance for the sums taken in another order.
 BF16_ULP, BF16_P_ROUND = 2.0 ** -7, 2.0 ** -8
 
@@ -184,21 +192,92 @@ def phase_device():
     return name, count, card
 
 
+def _sass_mma_count(name: str) -> int:
+    """HMMA/HGMMA (tensor-core) instructions in a built kernel library,
+    counted in ``cuobjdump -sass``."""
+    from libsplinter_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_cuda.library_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {name}: {out.stderr}")
+    return len(re.findall(r"\bH(?:G)?MMA\b", out.stdout))
+
+
+# the tensor-core instantiations of the main path (D = 64) must not
+# spill: ptxas' "N bytes spill stores, N bytes spill loads" read 0
+NO_SPILL = ("flash_fwd_mma_kernel<64>", "bwd_dkdv_mma_kernel<64>",
+            "bwd_dq_mma_kernel<64>")
+
+
+def _kernel_label(fn: str) -> str:
+    """A mangled kernel name as name<dtype, D>: the anonymous-namespace
+    prefix nvcc gives every kernel makes the raw name unreadable."""
+    for m in re.finditer(r"(?<!\d)(\d+)(?=[A-Za-z_])", fn):
+        end = m.end() + int(m.group(1))
+        name = fn[m.end():end]
+        if name.endswith("_kernel") and fn[end:end + 1] == "I":
+            args = fn[end + 1:fn.find("EEv", end)] + "E"
+            kind = ("bf16" if "bfloat16" in args else
+                    "f32" if args.startswith("f") else "")
+            dims = re.findall(r"Li(\d+)E", args)
+            return f"{name}<{', '.join([kind] * bool(kind) + dims)}>"
+    return fn[:70]
+
+
+def _ptxas_table(log_text: str) -> dict[str, tuple[int, int]]:
+    """kernel label -> (registers, spill bytes stored + loaded) from
+    nvcc's -Xptxas=-v output."""
+    table, fn, spill = {}, "?", 0
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn = _kernel_label(line.split("'")[1])
+        elif "spill" in line:
+            spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                   line))
+        elif "Used" in line and "registers" in line:
+            table[fn] = (int(re.search(r"Used (\d+) registers",
+                                       line).group(1)), spill)
+    return table
+
+
 def phase_build():
+    """Build every kernel; print registers and spills per kernel of
+    K1/K6 (and a summary of the others), require no spill in the D = 64
+    tensor-core kernels and tensor-core instructions in K1's and K6's
+    SASS."""
     from libsplinter_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
     built = _cuda.build(verbose=True, force=True)
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f}s (parallel nvcc)")
-    for name, rec in built.items():
-        fn = "?"
-        for line in rec["log"].splitlines():
-            if "Compiling entry function" in line:
-                fn = line.split("'")[1]
-            elif "registers" in line or "spill" in line:
-                log(f"  ptxas {name} {fn[:70]}: {line.strip()}")
     check(set(built) == set(_cuda.SOURCES), "not every kernel built")
+    tables = {name: _ptxas_table(rec["log"]) for name, rec in built.items()}
+    for name, table in tables.items():
+        check(table, f"{name}: no ptxas register line")
+        if name in ("flash_fwd", "flash_bwd"):
+            for fn, (regs, spill) in sorted(table.items()):
+                log(f"  ptxas {name} {fn}: {regs} registers, {spill} bytes "
+                    f"of spill")
+        else:
+            regs = [r for r, _ in table.values()]
+            spilled = {fn: sp for fn, (_, sp) in table.items() if sp}
+            log(f"  ptxas {name}: {len(table)} kernels, {min(regs)}-"
+                f"{max(regs)} registers, {len(spilled)} with spill "
+                f"(max {max(spilled.values(), default=0)} bytes)")
+        for fn in NO_SPILL:
+            if fn in table:
+                check(table[fn][1] == 0, f"{fn} spills {table[fn][1]} "
+                      f"bytes")
+    for name in ("flash_fwd", "flash_bwd"):
+        n = _sass_mma_count(name)
+        log(f"  sass {name}: {n} HMMA/HGMMA instructions (tensor cores)")
+        check(n > 0, f"{name}: no tensor-core instruction in its SASS")
+    for fn in NO_SPILL:
+        check(any(fn in table for table in tables.values()),
+              f"no ptxas line for {fn} in {sorted(tables['flash_fwd'])} "
+              f"{sorted(tables['flash_bwd'])}")
 
 
 def _attn_case(b, s, dtype, seed):
@@ -218,7 +297,8 @@ def phase_flash(results):
     import torch.nn.functional as F
 
     from libsplinter_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, flash_fwd_cuda,
+        flash_row_stats_plain)
 
     for b, s in ((8, 2048), (32, 512)):
         for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32,
@@ -246,7 +326,16 @@ def phase_flash(results):
             ulim = lim if kind == "f32" else lim[-1]
             check(bool((udiff <= ulim).all()),
                   f"K1 fully-masked row not uniform: {udiff.max().item()}")
-            del qf, kf, vf, ref32, diff, udiff
+            # the row max and sum K6 takes: the output is the same bit
+            # for bit with them, and they match the plain helper's
+            got2, stats = flash_fwd_cuda(q, k, v, mask.float(), stats=True)
+            want = flash_row_stats_plain(qf, kf, mask)
+            check(torch.equal(got2, got),
+                  f"K1 {kind} B={b} S={s}: output differs with stats")
+            serr = ((stats - want).abs() / (want.abs() + 1)).max().item()
+            check(serr <= 1e-5 and bool((stats[:, -1] == want[:, -1]).all()),
+                  f"K1 {kind} B={b} S={s}: row max/sum off by {serr}")
+            del qf, kf, vf, ref32, diff, udiff, got2, stats, want
             ms = cuda_ms(lambda: flash_attention(q, k, v, mask), reps=5)
             plain_ms = cuda_ms(
                 lambda: flash_attention_plain(q, k, v, mask), reps=3)
@@ -260,11 +349,14 @@ def phase_flash(results):
             bms, by = bound(nbytes, flops, kind)
             rec = {"shape": f"B={b} S={s} H={h} D={d} {kind}",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                   "tflops": flops / ms / 1e9}
             log(f"K1 flash_fwd {rec['shape']}: err {err:.3g} (limit "
-                f"{atol}; worst {worst:.3f} of it); kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, "
-                f"sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+                f"{atol}; worst {worst:.3f} of it; row max/sum within "
+                f"{serr:.2g}, output identical with them); kernel "
+                f"{ms:.3f} ms = {rec['tflops']:.1f} TFLOP/s, plain "
+                f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound "
+                f"{bms:.3f} ms ({by}, {flops / bms / 1e9:.0f} TFLOP/s)")
             results.setdefault("flash_fwd", []).append(rec)
             del q, k, v, got, qt, kt, vt
             torch.cuda.empty_cache()
@@ -287,7 +379,8 @@ def phase_flash_bwd(results):
     import torch.nn.functional as F
 
     from libsplinter_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_bwd_plain, flash_bwd_cuda)
+        flash_attention_bwd_plain, flash_bwd_cuda, flash_bwd_plain_and_terms,
+        flash_fwd_cuda)
 
     for b, s in ((8, 2048), (16, 512)):
         for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32,
@@ -295,19 +388,24 @@ def phase_flash_bwd(results):
             q, k, v, mask = _attn_case(b, s, dtype, seed=3 * b + s)
             g = torch.Generator(device="cuda").manual_seed(b * s)
             do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-            o = flash_attention(q, k, v, mask)
             maskf = mask.float()
-            got = flash_bwd_cuda(q, k, v, o, do, maskf)
-            ref = flash_attention_bwd_plain(
-                *(t.float() for t in (q, k, v, o, do)), mask)
+            o, stats = flash_fwd_cuda(q, k, v, maskf, stats=True)
+            got = flash_bwd_cuda(q, k, v, o, do, maskf, stats)
+            f32 = [t.float() for t in (q, k, v, o, do)]
+            ref, terms = (flash_bwd_plain_and_terms(*f32, mask)
+                          if kind == "bf16" else
+                          (flash_attention_bwd_plain(*f32, mask),
+                           (0.0, 0.0, 0.0)))
+            del f32
             torch.cuda.synchronize()
             err, worst, dead = 0.0, 0.0, 0.0
-            for name, gt, rt in zip(("dq", "dk", "dv"), got, ref):
+            for name, gt, rt, term in zip(("dq", "dk", "dv"), got, ref,
+                                          terms):
                 check(bool(torch.isfinite(gt.float()).all()),
                       f"K6 {kind} B={b} S={s}: non-finite {name}")
                 f32_tol = F32_ATOL * max(1.0, rt.abs().max().item())
                 lim = f32_tol if kind == "f32" \
-                    else BF16_ULP * rt.abs() + f32_tol
+                    else BF16_ULP * rt.abs() + BF16_P_ROUND * term + f32_tol
                 diff = (gt.float() - rt.to(dtype).float()).abs()
                 err = max(err, diff.max().item())
                 dead = max(dead, diff[-1].max().item())
@@ -325,9 +423,10 @@ def phase_flash_bwd(results):
                         <= ulim).all()),
                   f"K6 {kind} B={b} S={s}: dead row's dV is not the mean "
                   f"of dO")
-            del ref
-            ms = cuda_ms(lambda: flash_bwd_cuda(q, k, v, o, do, maskf),
-                         reps=3 if s > 512 else 10)
+            del ref, terms
+            ms = cuda_ms(lambda: flash_bwd_cuda(q, k, v, o, do, maskf,
+                                                stats),
+                         reps=5 if s > 512 else 10)
             plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, o, do, mask), reps=2)
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -347,18 +446,23 @@ def phase_flash_bwd(results):
             lib_ms = cuda_ms(sdpa_fwd_bwd, reps=5) - fwd_ms
             bms, by = _bwd_bound(q.shape, q.element_size(), kind)
             limit = (f"{F32_ATOL} max(1, max|ref|)" if kind == "f32"
-                     else "2^-7 |ref| + 1e-5 max(1, max|ref|)")
+                     else "2^-7 |ref| + 2^-8 (|P|^T|dO|, |dS|^T|Q|, |dS||K|)"
+                     " + 1e-5 max(1, max|ref|)")
             h, d = q.shape[2:]
+            flops = 10.0 * b * h * s * s * d          # the bound's count
             rec = {"shape": f"B={b} S={s} H={h} D={d} {kind}",
                    "max_abs_err": err, "dead_row_err": dead, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "sdpa_fwd_ms": fwd_ms, "bound_ms": bms, "bound_by": by}
+                   "sdpa_fwd_ms": fwd_ms, "bound_ms": bms, "bound_by": by,
+                   "tflops": flops / ms / 1e9}
             log(f"K6 flash_bwd {rec['shape']}: err {err:.3g} (limit "
                 f"{limit}; worst {worst:.3f} of it; fully-masked row "
-                f"{dead:.3g}, its dV the mean of dO); kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms "
+                f"{dead:.3g}, its dV the mean of dO); kernel {ms:.3f} ms = "
+                f"{rec['tflops']:.1f} TFLOP/s on the bound's 10 S^2 D "
+                f"({1.4 * rec['tflops']:.1f} on the 14 it runs), plain "
+                f"{plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms "
                 f"(fwd+bwd minus fwd {fwd_ms:.3f}), bound {bms:.3f} ms "
-                f"({by})")
+                f"({by}, {flops / bms / 1e9:.0f} TFLOP/s)")
             results.setdefault("flash_bwd", []).append(rec)
             del q, k, v, o, do, got, qt, kt, vt, dot
             torch.cuda.empty_cache()
@@ -1023,14 +1127,13 @@ def phase_lane(nslots, card, timings):
 
 
 def _kernel_class(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "K1 flash_fwd"
     if "causal_fwd_kernel" in name:
         return "K4 causal_fwd"
     if "paged_fwd_kernel" in name:
         return "K5 paged_fwd"
-    if any(t in name for t in ("bwd_stats_kernel", "bwd_dkdv_kernel",
-                               "bwd_dq_kernel")):
+    if any(t in name for t in ("bwd_rowsum_", "bwd_dkdv_", "bwd_dq_")):
         return "K6 flash_bwd"
     if "multi_tensor_apply" in name:
         return "optimizer (foreach AdamW)"

@@ -35,7 +35,8 @@ SOURCES = {
     "causal_fwd": "causal_fwd.cu",
     "paged_fwd": "paged_fwd.cu",
 }
-_HEADERS = ("common.cuh", "score_tile.cuh", "attention.cuh")
+_HEADERS = ("common.cuh", "score_tile.cuh", "attention.cuh",
+            "attention_mma.cuh")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -44,13 +45,13 @@ P, I32, I64, F32 = C.c_void_p, C.c_int, C.c_longlong, C.c_float
 # exported C function -> argtypes (restype is int: the CUDA error code)
 _SIGNATURES = {
     "flash_fwd": {
-        "sptk_flash_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32,
+        "sptk_flash_fwd": [P, P, P, P, P, P, I32, I32, I32, I32, I32,
                            I64, I64, I64, I64, I64, I64, I64, I64, I64,
                            I64, I64, I64, F32, P],
     },
     "flash_bwd": {
-        "sptk_flash_bwd": [P, P, P, P, P, P, P, P, P, P, I32, I32, I32,
-                           I32, I32, C.POINTER(I64), F32, P],
+        "sptk_flash_bwd": [P, P, P, P, P, P, P, P, P, P, P, I32, I32,
+                           I32, I32, I32, C.POINTER(I64), F32, P],
     },
     "cosine_scores": {
         "sptk_cosine_scores": [P, I64, I32, P, I32, P, P, P, I32, I32, P],

@@ -9,11 +9,15 @@ running only the port need not have; this file imports no JAX).
 Tolerances: f32 attention atol 1e-5 (online vs one-pass softmax sums
 in another order); bf16 attention atol 2e-2 against the plain math run
 in f32 on the same bf16 inputs (the kernel rounds probabilities to
-bf16 before P.V, and the output to bf16); K6 (the attention backward)
-in f32 within 1e-5 * max(1, max |ref|), and in bf16 per element within
-one bf16 ulp of the f32 reference (2^-7 |ref|: the kernel's f32 result
-and the reference's may round to neighbouring bf16 values; K6 keeps P
-and dS in f32, so nothing else is rounded) plus that f32 tolerance; cosine scores atol 1e-5 on
+bf16 before P.V, and the output to bf16); K1's row max and sum at
+1e-5 relative; K6 (the attention backward) in f32 within
+1e-5 * max(1, max |ref|), and in bf16 per element within one bf16 ulp
+of the f32 reference (2^-7 |ref|: the kernel's f32 result and the
+reference's may round to neighbouring bf16 values) plus 2^-8 of the
+sum that rounding P and dS to bf16 moves (|P|^T |dO| for dv,
+|dS|^T |Q| for dk, |dS| |K| for dq: the kernel rounds them before
+their products, as the TPU kernel's default-precision dots do) plus
+that f32 tolerance; cosine scores atol 1e-5 on
 random f32 data.  Top-k inputs are small integers over 4, so every dot
 product and squared norm is exact in f32 in any summation order: the
 kernel's scores then equal the plain version's bit for bit, and the
@@ -26,8 +30,8 @@ import torch
 from libsplinter_tpu_torch.ops import _cuda
 from libsplinter_tpu_torch.ops.flash_attention import (
     _pad_seq, causal_attention_plain, causal_flash_attention,
-    flash_attention, flash_attention_bwd_plain, flash_attention_plain,
-    flash_bwd_cuda)
+    flash_attention, flash_attention_plain, flash_bwd_cuda,
+    flash_bwd_plain_and_terms, flash_fwd_cuda, flash_row_stats_plain)
 from libsplinter_tpu_torch.ops.similarity import (
     _cosine_scores_plain, _fused_topk_plain, _stable_topk,
     cosine_scores_cuda, fused_topk_cuda, topk_program)
@@ -58,7 +62,7 @@ def _attn_inputs(rng, b, s, h, d, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,d", [(64, 16), (300, 64), (512, 64),
-                                 (130, 128)])
+                                 (130, 128), (100, 32), (1, 64), (7, 16)])
 def test_flash_matches_plain(cuda, dtype, s, d):
     rng = np.random.default_rng(s * 7 + d)
     q, k, v, mask = _attn_inputs(rng, 3, s, 2, d, dtype, cuda)
@@ -91,38 +95,87 @@ def test_flash_takes_strided_views(cuda):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
 
 
-def _bwd_check(got, ref32, dtype, what):
+def _bwd_check(got, ref32, dtype, what, terms):
     """K6's tolerance (module docstring): f32 1e-5 * max(1, max|ref|);
-    bf16 adds one bf16 ulp of |ref| per element."""
-    for name, g, r in zip(("dq", "dk", "dv"), got, ref32):
+    bf16 adds one bf16 ulp of |ref| and 2^-8 of the rounding terms
+    (``flash_bwd_plain_and_terms``) per element."""
+    for name, g, r, term in zip(("dq", "dk", "dv"), got, ref32, terms):
         assert g.dtype == dtype and torch.isfinite(g.float()).all()
         f32_tol = 1e-5 * max(1.0, r.abs().max().item())
         lim = f32_tol if dtype == torch.float32 \
-            else 2.0 ** -7 * r.abs() + f32_tol
+            else 2.0 ** -7 * r.abs() + 2.0 ** -8 * term + f32_tol
         err = (g.float() - r.to(dtype).float()).abs()
         assert (err <= lim).all(), f"{what} {name}: max err {err.max()}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,d", [(64, 16), (200, 32), (512, 64),
-                                 (130, 128)])
+                                 (130, 128), (100, 64), (1, 64), (7, 16)])
 def test_flash_bwd_matches_plain(cuda, dtype, s, d):
     """K6 on the padded layout, a fully-masked batch row included
-    (uniform P over S): the kernel against its plain version in f32 on
-    the same values."""
+    (uniform P over S), S = 100, 7 and 1 not multiples of the 64-row
+    tile: the kernel against its plain version in f32 on the same
+    values."""
     rng = np.random.default_rng(s * 11 + d)
     q, k, v, mask = _attn_inputs(rng, 3, s, 2, d, dtype, cuda)
     q, k, v, mask, _ = _pad_seq(q, k, v, mask, 256)
-    o = flash_attention(q, k, v, mask)
+    o, stats = flash_fwd_cuda(q, k, v, mask.float(), stats=True)
     do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)
                           ).to(cuda, dtype)
     before = _cuda.LAUNCHES["flash_bwd"]
-    got = flash_bwd_cuda(q, k, v, o, do, mask.float())
+    got = flash_bwd_cuda(q, k, v, o, do, mask.float(), stats)
     assert _cuda.LAUNCHES["flash_bwd"] == before + 1
-    ref = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
-                                    mask)
+    ref, terms = flash_bwd_plain_and_terms(q, k, v, o, do, mask)
     torch.cuda.synchronize()
-    _bwd_check(got, ref, dtype, f"S={s} D={d}")
+    _bwd_check(got, ref, dtype, f"S={s} D={d}", terms)
+    # the dead row's P is uniform over the S keys: its dV is the mean
+    # of its dO over the queries
+    mean = do[-1].float().mean(dim=0)
+    tol = 1e-5 * max(1.0, mean.abs().max().item())
+    if dtype == torch.bfloat16:
+        tol = 2.0 ** -7 * mean.abs() + tol
+    assert ((got[2][-1].float() - mean[None]).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(64, 16), (100, 32), (300, 64),
+                                 (130, 128)])
+def test_flash_row_stats(cuda, dtype, s, d):
+    """K1's row max and sum (what K6 takes) against the plain helper on
+    the same values, a fully-masked row (m = -1e30, l = S) included;
+    the output is the same bit for bit with and without them."""
+    rng = np.random.default_rng(s * 13 + d)
+    q, k, v, mask = _attn_inputs(rng, 3, s, 2, d, dtype, cuda)
+    maskf = mask.float()
+    plain_out = flash_fwd_cuda(q, k, v, maskf)
+    out, stats = flash_fwd_cuda(q, k, v, maskf, stats=True)
+    want = flash_row_stats_plain(q.float(), k.float(), mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    assert stats.shape == (2, 3, 2, s) and stats.dtype == torch.float32
+    torch.testing.assert_close(stats, want, rtol=1e-5, atol=1e-5)
+    assert (stats[0, -1] == -1e30).all() and (stats[1, -1] == s).all()
+
+
+def test_flash_rejects_misaligned_views(cuda):
+    """cp.async moves 16-byte chunks: a view whose base or row stride
+    is not a multiple of 16 bytes raises instead of launching."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 2 * 64 + 1))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    q = x[..., 1:].reshape(2, 64, 2, 64)          # base off by 2 bytes
+    k = v = x[..., :-1].reshape(2, 64, 2, 64)     # row stride 258 bytes
+    mask = torch.ones(2, 64, dtype=torch.bool, device=cuda)
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_fwd_cuda(q, q.clone(), q.clone(), mask.float())
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_fwd_cuda(k.clone(), k, v, mask.float())
+    qc = k.contiguous()
+    o, stats = flash_fwd_cuda(qc, qc, qc, mask.float(), stats=True)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_bwd_cuda(qc, qc, qc, o, q, mask.float(), stats)
+    assert _cuda.LAUNCHES["flash_bwd"] == before["flash_bwd"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -152,10 +205,10 @@ def test_flash_autograd_runs_k1_and_k6(cuda, dtype):
     assert pad == 212
     op = flash_attention(qp, kp, vp, mp)     # the output K6 was given
     gp = torch.nn.functional.pad(g.float(), (0, 0, 0, 0, 0, pad))
-    ref = flash_attention_bwd_plain(qp.float(), kp.float(), vp.float(),
-                                    op.float(), gp, mp)
+    ref, terms = flash_bwd_plain_and_terms(qp, kp, vp, op, gp, mp)
     torch.cuda.synchronize()
-    _bwd_check(grads, [r[:, :s] for r in ref], dtype, "autograd")
+    _bwd_check(grads, [r[:, :s] for r in ref], dtype, "autograd",
+               [t[:, :s] for t in terms])
 
 
 def _causal_inputs(rng, b, s, t, h, kh, d, dtype, dev):
