@@ -10,24 +10,26 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and count, nvidia-smi's name + power limit;
   2. build: compile the kernels (csrc/*.cu, one nvcc per source, all
      started together), print the build seconds, ptxas' registers and
-     spills per kernel of K1/K6 (a summary for the others; the D = 64
-     tensor-core kernels must not spill) and the HMMA/HGMMA count of
-     K1's and K6's SASS (cuobjdump -sass; must be above 0);
+     spills per kernel of K1/K2/K4/K6 (a summary for the others; the
+     D = 64 tensor-core kernels must not spill) and the HMMA/HGMMA count
+     of K1's, K4's and K6's SASS (cuobjdump -sass; must be above 0);
   3. kernels: each kernel against its plain version at the main path's
      shapes (K1 flash attention at B=8 S=2048 and B=32 S=512, bf16 and
      f32, its row max/sum for K6 against the plain helper and its output
      identical with and without them; K6, its backward, at B=8 S=2048
      and B=16 S=512, bf16 and f32, with SDPA's backward as the
-     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores and K2 fused top-k over a 1,048,576 x 768
-     f32 lane; K4 causal prefill attention over a 2048-slot cache at
-     B=8 S=1024, B=1 S=2048, a joiner at pos > 0 and GQA 12/4, bf16
-     and f32, each with queries that see no key; K5 ragged paged
-     attention over a 513-block pool at B=32 H=12 D=64 page 128 with
-     seeded lengths, a dead row and a page-boundary row, over bf16, f32,
-     int8 and int4 pools, GQA 12/4, and a 64-token multi-query stack,
-     each case also launched with f32 queries over f32 or quantized
-     pools and held to 1e-5), with CUDA-event times of the kernel, the plain version and a
-     PyTorch yardstick call the port never makes, beside the bound (the
+     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores and K2 fused
+     top-k over a 1,048,576 x 768 f32 lane, K2 at Q = 8, 32 and 256 by
+     k = 16 and 128 with its share of the bound; K4 causal prefill
+     attention over a 2048-slot cache at B=8 S=1024, B=1 S=2048, a
+     joiner at pos > 0 and GQA 12/4, bf16 and f32, each with queries
+     that see no key; K5 ragged paged attention over a 513-block pool
+     at B=32 H=12 D=64 page 128 with seeded lengths, a dead row and a
+     page-boundary row, over bf16, f32, int8 and int4 pools, GQA 12/4,
+     and a 64-token multi-query stack, each case also launched with f32
+     queries over f32 or quantized pools and held to 1e-5), with
+     CUDA-event times of the kernel, the plain version and a PyTorch
+     yardstick call the port never makes, beside the bound (the
      larger of bytes / 3.35 TB/s and FLOPs / the card's peak for the
      input type);
   4. end to end: a file-backed store with 1,048,576 slots of 768-d
@@ -70,8 +72,8 @@ Phases (any failure exits non-zero and prints no result line):
      weights served through EmbeddingModel against the trainer's own
      forward;
   8. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
-     (K4), 6 (K5) and 7 (K6), each counted from 0 just before its path
-     runs.
+     and 6 (K4, their sum; each phase's count in the timings line), 6
+     (K5) and 7 (K6), each counted from 0 just before its path runs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -116,14 +118,13 @@ SOURCES = {
 
 LANE_DIM = 768
 F32_ATOL = 1e-5
-BF16_ATOL = 2e-2                 # K4's bf16 cases
-# K1's, K5's and K6's bf16 outputs against the f32 plain version on the
-# same values rounded to bf16, per element:
+# K1's, K4's, K5's and K6's bf16 outputs against the f32 plain version
+# on the same values rounded to bf16, per element:
 #   - one bf16 ulp of |ref|, at most 2^-7 |ref| (bf16 keeps 8
 #     significant bits): the kernel's f32 value and the reference's may
 #     round to neighbouring bf16 values;
-#   - where the kernel rounds the probabilities to bf16 before P.V (K1;
-#     K5 over bf16 pools), each P_j moves by at most 2^-8 P_j (bf16's
+#   - where the kernel rounds the probabilities to bf16 before P.V (K1,
+#     K4; K5 over bf16 pools), each P_j moves by at most 2^-8 P_j (bf16's
 #     unit roundoff), so the output by at most 2^-8 sum_j P_j |V_j|:
 #     2^-8 of the attention-weighted mean of |V|.  K6 rounds P and dS
 #     to bf16 before its products, as the TPU kernel's default-precision
@@ -207,7 +208,11 @@ def _sass_mma_count(name: str) -> int:
 # the tensor-core instantiations of the main path (D = 64) must not
 # spill: ptxas' "N bytes spill stores, N bytes spill loads" read 0
 NO_SPILL = ("flash_fwd_mma_kernel<64>", "bwd_dkdv_mma_kernel<64>",
-            "bwd_dq_mma_kernel<64>")
+            "bwd_dq_mma_kernel<64>", "causal_fwd_mma_kernel<64>")
+# kernels whose ptxas lines are printed one by one, and whose SASS must
+# hold tensor-core instructions
+PTXAS_EACH = ("flash_fwd", "flash_bwd", "causal_fwd", "fused_topk")
+TENSOR_CORE = ("flash_fwd", "flash_bwd", "causal_fwd")
 
 
 def _kernel_label(fn: str) -> str:
@@ -220,7 +225,8 @@ def _kernel_label(fn: str) -> str:
             args = fn[end + 1:fn.find("EEv", end)] + "E"
             kind = ("bf16" if "bfloat16" in args else
                     "f32" if args.startswith("f") else "")
-            dims = re.findall(r"Li(\d+)E", args)
+            dims = [v if t == "i" else ("false", "true")[v == "1"]
+                    for t, v in re.findall(r"L([ib])(\d+)E", args)]
             return f"{name}<{', '.join([kind] * bool(kind) + dims)}>"
     return fn[:70]
 
@@ -243,9 +249,9 @@ def _ptxas_table(log_text: str) -> dict[str, tuple[int, int]]:
 
 def phase_build():
     """Build every kernel; print registers and spills per kernel of
-    K1/K6 (and a summary of the others), require no spill in the D = 64
-    tensor-core kernels and tensor-core instructions in K1's and K6's
-    SASS."""
+    K1/K2/K4/K6 (and a summary of the others), require no spill in the
+    D = 64 tensor-core kernels and tensor-core instructions in K1's,
+    K4's and K6's SASS."""
     from libsplinter_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -256,7 +262,7 @@ def phase_build():
     tables = {name: _ptxas_table(rec["log"]) for name, rec in built.items()}
     for name, table in tables.items():
         check(table, f"{name}: no ptxas register line")
-        if name in ("flash_fwd", "flash_bwd"):
+        if name in PTXAS_EACH:
             for fn, (regs, spill) in sorted(table.items()):
                 log(f"  ptxas {name} {fn}: {regs} registers, {spill} bytes "
                     f"of spill")
@@ -270,14 +276,14 @@ def phase_build():
             if fn in table:
                 check(table[fn][1] == 0, f"{fn} spills {table[fn][1]} "
                       f"bytes")
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in TENSOR_CORE:
         n = _sass_mma_count(name)
         log(f"  sass {name}: {n} HMMA/HGMMA instructions (tensor cores)")
         check(n > 0, f"{name}: no tensor-core instruction in its SASS")
     for fn in NO_SPILL:
         check(any(fn in table for table in tables.values()),
-              f"no ptxas line for {fn} in {sorted(tables['flash_fwd'])} "
-              f"{sorted(tables['flash_bwd'])}")
+              f"no ptxas line for {fn} in "
+              f"{[sorted(tables[n]) for n in TENSOR_CORE]}")
 
 
 def _attn_case(b, s, dtype, seed):
@@ -528,20 +534,33 @@ def phase_causal(results):
             got = causal_flash_attention(q, kk, vv, pos, start)
             kr, vr = (x.float().repeat_interleave(rep, dim=2)
                       for x in (kk, vv))
-            ref = causal_attention_plain(q.float(), kr, vr, pos,
-                                         start).to(dtype)
+            ref32 = causal_attention_plain(q.float(), kr, vr, pos, start)
+            mean = vr.mean(dim=1)[:, None]               # (B, 1, H, D)
+            if kind == "f32":
+                lim = mlim = F32_ATOL
+                limit = f"atol {F32_ATOL}"
+            else:                          # the bound beside BF16_ULP
+                lim = (BF16_ULP * ref32.abs() + BF16_P_ROUND
+                       * causal_attention_plain(q.float(), kr, vr.abs(),
+                                                pos, start) + F32_ATOL)
+                mlim = (BF16_ULP * mean.abs() + BF16_P_ROUND
+                        * vr.abs().mean(dim=1)[:, None] + F32_ATOL)
+                limit = "2^-7 |ref| + 2^-8 P|V| + 1e-5"
+            diff = (got.float() - ref32.to(dtype).float()).abs()
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got.float()).all()),
                   f"K4 {kind} B={b} S={s}: non-finite output")
-            err = (got.float() - ref.float()).abs().max().item()
-            atol = F32_ATOL if kind == "f32" else BF16_ATOL
-            check(err <= atol, f"K4 {kind} B={b} S={s} pos={pos} KH={kh}: "
-                  f"max err {err}")
-            mean = vr.mean(dim=1)                        # (B, H, D)
+            err = diff.max().item()
+            worst = (diff / lim).max().item()
+            check(worst <= 1.0, f"K4 {kind} B={b} S={s} pos={pos} KH={kh}: "
+                  f"max err {err}, {worst:.3f} of its limit {limit}")
             empty = ~has_key
-            merr = (got.float() - mean[:, None]).abs()[empty].max().item()
-            check(merr <= atol, f"K4 keyless queries not the mean of V: "
-                  f"{merr}")
+            mdiff = (got.float() - mean).abs()
+            merr = mdiff[empty].max().item()
+            mworst = (mdiff / mlim)[empty].max().item()
+            check(mworst <= 1.0, f"K4 keyless queries not the mean of V: "
+                  f"{merr}, {mworst:.3f} of the limit")
+            del diff, mdiff, lim, mlim
             ms = cuda_ms(lambda: causal_flash_attention(q, kk, vv, pos,
                                                         start), reps=5)
             plain_ms = cuda_ms(lambda: causal_attention_plain(
@@ -562,13 +581,15 @@ def phase_causal(results):
             rec = {"shape": _causal_shape(b, s, t, h, kh, pos, kind),
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
-            log(f"K4 causal_fwd {rec['shape']}: err {err:.3g} (atol "
-                f"{atol}), keyless rows {int(empty.sum())} = mean of V "
-                f"(err {merr:.3g}); kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms (vs kernel on "
-                f"rows with keys: {lib_err:.3g}), bound {bms:.4f} ms ({by})")
+            log(f"K4 causal_fwd {rec['shape']}: err {err:.3g} (limit "
+                f"{limit}; worst {worst:.3f} of it), keyless rows "
+                f"{int(empty.sum())} = mean of V (err {merr:.3g}, "
+                f"{mworst:.3f} of the limit); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (vs kernel on "
+                f"rows with keys: {lib_err:.3g}), bound {bms:.4f} ms "
+                f"({by}; {bms / ms:.1%} of it)")
             results.setdefault("causal_fwd", []).append(rec)
-            del q, kk, vv, got, ref, kr, vr, qt, kt, vt, lib
+            del q, kk, vv, got, ref32, kr, vr, mean, qt, kt, vt, lib
             torch.cuda.empty_cache()
 
 
@@ -848,7 +869,8 @@ def phase_search_kernels(results, n):
                    "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
             log(f"K2 fused_topk {rec['shape']}: rows identical, err "
                 f"{err}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"matmul+topk {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+                f"matmul+topk {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}; "
+                f"kernel at {bms / ms:.1%} of it)")
             results.setdefault("fused_topk", []).append(rec)
     # fewer candidates than k: (NEG_INF, -1) filler, identical rows
     few = torch.zeros(n, device="cuda")
@@ -1129,12 +1151,17 @@ def phase_lane(nslots, card, timings):
 def _kernel_class(name: str) -> str:
     if "flash_fwd_" in name:
         return "K1 flash_fwd"
-    if "causal_fwd_kernel" in name:
+    if "causal_fwd_" in name:           # the bf16 mma and f32 FMA kernels
         return "K4 causal_fwd"
     if "paged_fwd_kernel" in name:
         return "K5 paged_fwd"
     if any(t in name for t in ("bwd_rowsum_", "bwd_dkdv_", "bwd_dq_")):
         return "K6 flash_bwd"
+    # before the GEMM names: a K2 or K3 kernel may carry "gemm" in its own
+    if "topk_partial_kernel" in name or "topk_merge_kernel" in name:
+        return "K2 fused_topk"
+    if "cosine_scores_kernel" in name:
+        return "K3 cosine_scores"
     if "multi_tensor_apply" in name:
         return "optimizer (foreach AdamW)"
     if any(t in name for t in ("gemm", "cutlass", "sm90_", "cublas",
@@ -1537,7 +1564,8 @@ def phase_continuous(card, timings):
         log(f"  prefix cache: {pc.stats.hits} hits, {pc.stats.misses} "
             f"misses, {pc.stats.hit_tokens} tokens served from the tree, "
             f"{pc.stats.cow_copies} COW copies; K5 launches by query "
-            f"tokens {by_q}; join backpressure "
+            f"tokens {by_q}; K4 launches {counts['causal_fwd']} (prefills "
+            f"of 512 tokens and up); join backpressure "
             f"{comp.stats.join_backpressure}, inflight peak "
             f"{comp.stats.inflight_peak}")
         timings["continuous"] = {
@@ -1883,9 +1911,14 @@ def main() -> int:
         phase_causal(results)
         phase_paged(results)
         counts = phase_lane(_lane_slots(1 << 20), card, timings)
-        counts["causal_fwd"] = phase_completion(card,
-                                                timings)["causal_fwd"]
-        counts["paged_fwd"] = phase_continuous(card, timings)["paged_fwd"]
+        k4 = {"phase 5": phase_completion(card, timings)["causal_fwd"]}
+        cont = phase_continuous(card, timings)
+        counts["paged_fwd"] = cont["paged_fwd"]
+        # K4 runs on both completion lanes, each counted from 0 just
+        # before its path: the record carries their sum
+        k4["phase 6"] = cont["causal_fwd"]
+        counts["causal_fwd"] = sum(k4.values())
+        timings["causal_fwd_launches"] = k4
         counts["flash_bwd"] = phase_train(card, timings)["flash_bwd"]
     except Exception:
         traceback.print_exc()

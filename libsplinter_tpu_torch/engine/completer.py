@@ -1608,21 +1608,25 @@ class Completer:
 # refuses to start rather than serve another way (see ROADMAP.md)
 _NOT_PORTED = (
     ("phase", "--phase prefill|decode",
-     "Queue A item 6: the disaggregated prefill/decode lanes"),
+     "Queue A, disaggregated lanes: engine/disagg.py"),
     ("kv_tier_pages", "--kv-tier-pages",
-     "Queue A item 6: the host-DRAM KV tier (engine/kv_tier.py)"),
+     "Queue A, KV tier: the host-DRAM tier of engine/kv_tier.py"),
     ("kv_tier_persist", "--kv-tier-persist",
-     "Queue A item 6: the host-DRAM KV tier (engine/kv_tier.py)"),
+     "Queue A, KV tier: the host-DRAM tier of engine/kv_tier.py"),
     ("quantized", "--quantized",
-     "Queue A item 8: int8 weight residency (models/quant.py)"),
+     "Queue A, weight quantization: models/quant.py"),
     ("weights_int8", "--weights-int8 / --weights int8",
-     "Queue A item 8: int8 weight residency (models/quant.py)"),
+     "Queue A, weight quantization: models/quant.py"),
     ("draft_weights", "--draft-weights",
-     "Queue A item 8: speculative decoding"),
+     "Queue A, speculative decoding: models/speculative.py"),
     ("draft_layers", "--draft-layers",
-     "Queue A item 8: speculative decoding"),
-    ("tp", "--tp", "Queue A item 9: tensor-parallel serving"),
-    ("ep", "--ep", "Queue A items 8-9: MoE expert parallelism"),
+     "Queue A, speculative decoding: models/speculative.py"),
+    ("gamma", "--gamma",
+     "Queue A, speculative decoding: models/speculative.py"),
+    ("spec_min_acceptance", "--spec-min-acceptance",
+     "Queue A, speculative decoding: models/speculative.py"),
+    ("tp", "--tp", "Queue A, multi-GPU: tensor-parallel serving"),
+    ("ep", "--ep", "Queue A, MoE and multi-GPU: expert parallelism"),
 )
 
 
@@ -1641,7 +1645,8 @@ def _refuse_not_ported(args) -> None:
     if args.weights and args.weights.endswith(".gguf"):
         raise SystemExit(
             "GGUF checkpoints are not yet ported to the torch package "
-            "(ROADMAP Queue A item 7: gguf.py load_decoder_params); "
+            "(ROADMAP Queue A, GGUF loading: gguf.py "
+            "load_decoder_params); "
             "convert to .safetensors")
 
 
@@ -1744,8 +1749,10 @@ def main(argv: list[str] | None = None) -> int:
         "not yet ported (the JAX daemon's; each refuses to start)")
     for flag in ("--quantized", "--weights-int8"):
         not_ported.add_argument(flag, action="store_true")
-    for flag in ("--tp", "--ep", "--draft-layers"):
+    for flag in ("--tp", "--ep", "--draft-layers", "--gamma"):
         not_ported.add_argument(flag, type=int, default=None)
+    not_ported.add_argument("--spec-min-acceptance", type=float,
+                            default=None)
     for flag in ("--phase", "--draft-weights"):
         not_ported.add_argument(flag, default=None)
     not_ported.add_argument("--kv-tier-pages", type=int, default=0)

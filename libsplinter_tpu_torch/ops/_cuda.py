@@ -35,8 +35,8 @@ SOURCES = {
     "causal_fwd": "causal_fwd.cu",
     "paged_fwd": "paged_fwd.cu",
 }
-_HEADERS = ("common.cuh", "score_tile.cuh", "attention.cuh",
-            "attention_mma.cuh")
+_HEADERS = ("common.cuh", "score_tile.cuh", "topk_tile.cuh",
+            "attention.cuh", "attention_mma.cuh")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -58,7 +58,7 @@ _SIGNATURES = {
     },
     "fused_topk": {
         "sptk_fused_topk": [P, I64, I32, P, I32, P, P, I32, I32, I32, I32,
-                            P, P, P, P, I32, P],
+                            P, P, P, P, P, I32, P],
     },
     "causal_fwd": {
         "sptk_causal_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32, I32,

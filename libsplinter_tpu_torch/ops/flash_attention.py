@@ -13,8 +13,8 @@ quadratic reaches device memory.  Training differentiates K1 through
 an autograd Function whose backward is K6 (csrc/flash_bwd.cu): it
 recomputes the probabilities tile by tile from the per-row max and
 sum that K1 wrote in the forward, so the backward is as linear in
-device memory as the forward.  bf16 inputs run both kernels on the
-tensor cores; f32 inputs run their exact FMA arm.
+device memory as the forward.  bf16 inputs run all three kernels on
+the tensor cores; f32 inputs run their exact FMA arm.
 
 Layout and semantics follow the JAX package's ``flash_attention`` and
 ``causal_flash_attention``: (B, S, H, D) at the public functions (K1
@@ -357,12 +357,17 @@ def causal_fwd_cuda(q, kk, vv, pos: int, start):
     dim contiguous; kk/vv: (B, T, KH, D) cache views of q's dtype, H a
     multiple of KH (query head h reads kv head h // (H / KH)); pos: the
     cache slot of q's first row, pos + S <= T; start: (B,) int32 CUDA
-    left-pad offsets.  Returns a new (B, S, H, D) tensor in q's dtype.
+    left-pad offsets.  In bf16 every base and (batch, seq, head) stride
+    must be a multiple of 16 bytes for cp.async (the decoder's caches,
+    a row of them and a split of a fused qkv projection pass).  Returns
+    a new (B, S, H, D) tensor in q's dtype.
 
     Replaces libsplinter_tpu/ops/flash_attention.py `_causal_kernel`;
     bound on an H100 by the bytes of q, the visible K/V and the output
-    at the decoder's shapes, run here as f32 FMA from shared memory (see
-    the source's header for the design)."""
+    at the decoder's shapes.  The dtype picks one of two hand-written
+    kernels, as for K1: bf16 runs on the tensor cores (bf16 products,
+    f32 sums, P rounded to bf16 as the reference does); f32 runs the
+    exact FMA tile (see the source's header for the design)."""
     if not (q.is_cuda and kk.is_cuda and vv.is_cuda and start.is_cuda):
         raise ValueError("causal_fwd_cuda needs CUDA tensors")
     if q.dtype not in (torch.float32, torch.bfloat16) \
@@ -390,6 +395,8 @@ def causal_fwd_cuda(q, kk, vv, pos: int, start):
     for x in (q, kk, vv):
         if x.stride(-1) != 1:
             raise ValueError("causal_fwd_cuda: last dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_aligned("causal_fwd_cuda", (q, kk, vv))
     start = start.contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = []

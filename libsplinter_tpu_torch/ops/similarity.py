@@ -35,17 +35,17 @@ NEG_INF = -1e30
 # its third step.
 FUSED_K_MAX = 128
 
-# query tile widths the kernels are compiled for
+# query tile widths K3 is compiled for
 QUERY_TILES = (8, 32, 64, 128, 256)
-# rows per tile for each query tile (csrc/score_tile.cuh TileRows)
-TILE_ROWS = {8: 256, 32: 128, 64: 64, 128: 64, 256: 64}
-# fused top-k: partial blocks per query tile.  Narrow tiles are bound
-# by the lane read and want eight blocks per H100 SM in flight; wide
-# tiles are bound by f32 FMA, where more blocks only add list inserts
-# and merge rounds (chip_smoke.py timings, PERF.md)
-TOPK_BLOCKS = {8: 1056, 32: 1056, 64: 264, 128: 264, 256: 264}
-# fused top-k: shared-memory budget of one block's per-query lists
-TOPK_LIST_BYTES = 64 << 10
+# K2 (csrc/topk_tile.cuh TileShape): query tile -> rows per tile,
+# queries per thread, depth of a staged chunk.  The narrow tiles
+# stream the lane; the wide one is an f32 GEMM.
+TOPK_TILES = {8: (256, 8, 64), 32: (256, 8, 32), 256: (128, 16, 32)}
+# shared memory of a block and of an SM (sm_90)
+TOPK_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
+_TOPK_STAGES, _TOPK_CAP = 2, 32      # ring stages, survivors per query
+H100_SMS = 132
 
 
 def _query_tile(nq: int) -> int:
@@ -178,13 +178,26 @@ def _fused_topk_plain(vectors, queries, k: int, mask=None, *,
     return s, i
 
 
-def _topk_plan(n: int, nq: int, k_list: int) -> tuple[int, int]:
-    """(query tile, partial blocks per tile) for the fused kernel."""
-    tq = _query_tile(nq)
-    while tq > QUERY_TILES[0] and tq * k_list * 8 > TOPK_LIST_BYTES:
-        tq = QUERY_TILES[QUERY_TILES.index(tq) - 1]
-    ntiles = -(-n // TILE_ROWS[tq])
-    return tq, max(1, min(ntiles, TOPK_BLOCKS[tq]))
+def _topk_smem(tq: int) -> int:
+    """Shared-memory bytes of one K2 partial block: the ring of staged
+    rows and queries, the survivor buffers, and per query its k-th
+    entry, push count, bound and norm (csrc/fused_topk.cu
+    partial_smem_bytes).  The lists live in the candidate arrays."""
+    tn, _, dk = TOPK_TILES[tq]
+    return 4 * (_TOPK_STAGES * (tn + tq) * (dk + 4) + 2 * tq * _TOPK_CAP
+                + 5 * tq)
+
+
+def _topk_plan(n: int, nq: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(query tile, partial blocks per tile) for the fused kernel: the
+    smallest tile holding nq queries (the widest for more), then as
+    many blocks over all query tiles as the SMs hold at once."""
+    tiles = sorted(TOPK_TILES)
+    tq = next((t for t in tiles if t >= nq), tiles[-1])
+    per_sm = max(1, SM_SMEM_BYTES // (_topk_smem(tq) + 1024))
+    passes = -(-nq // tq)
+    nblk = -(-sms * per_sm // passes)
+    return tq, max(1, min(-(-n // TOPK_TILES[tq][0]), nblk))
 
 
 def fused_topk_cuda(vectors, queries, k: int, mask=None, *,
@@ -195,8 +208,11 @@ def fused_topk_cuda(vectors, queries, k: int, mask=None, *,
 
     Replaces libsplinter_tpu/ops/similarity.py `_fused_topk_kernel`;
     bound on an H100 by the lane read for small Q and by f32 FMA for
-    Q = 256.  Per-block sorted lists in shared memory, then a merge
-    pass (see the source's header)."""
+    Q = 256.  A register-blocked f32 tile fed by a cp.async ring,
+    selection from registers into per-block sorted lists (kept in the
+    (Q, blocks, k) candidate arrays, bounded by the blocks' published
+    scores), then a merge pass (see the source's header).  Any d: rows
+    that are not 16-byte aligned load by 4-byte copies."""
     _check_lane(vectors, queries, mask, "fused_topk_cuda")
     if not 1 <= k <= FUSED_K_MAX:
         raise ValueError(f"fused_topk_cuda: k={k} outside 1.."
@@ -204,9 +220,12 @@ def fused_topk_cuda(vectors, queries, k: int, mask=None, *,
     n, d = vectors.shape
     nq = queries.shape[0]
     k_list = max(8, -(-k // 8) * 8)
-    tq, nblk = _topk_plan(n, nq, k_list)
     dev = vectors.device
+    tq, nblk = _topk_plan(
+        n, nq, torch.cuda.get_device_properties(dev).multi_processor_count)
     qnorm = torch.linalg.vector_norm(queries, dim=-1).contiguous()
+    bounds = torch.full((nq, 8), NEG_INF, dtype=torch.float32,
+                        device=dev)     # the blocks' published bounds
     cand_s = torch.empty((nq, nblk, k_list), dtype=torch.float32,
                          device=dev)
     cand_i = torch.empty((nq, nblk, k_list), dtype=torch.int32, device=dev)
@@ -215,9 +234,9 @@ def fused_topk_cuda(vectors, queries, k: int, mask=None, *,
     _cuda.launch("fused_topk", "sptk_fused_topk",
                  vectors.data_ptr(), n, d, queries.data_ptr(), nq,
                  qnorm.data_ptr(), 0 if mask is None else mask.data_ptr(),
-                 k_list, k, tq, nblk, cand_s.data_ptr(), cand_i.data_ptr(),
-                 out_s.data_ptr(), out_i.data_ptr(), int(mxu_bf16),
-                 _cuda.stream_handle(dev))
+                 k_list, k, tq, nblk, bounds.data_ptr(), cand_s.data_ptr(),
+                 cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                 int(mxu_bf16), _cuda.stream_handle(dev))
     return out_s, out_i
 
 

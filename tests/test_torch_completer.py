@@ -267,6 +267,7 @@ def test_main_serves_on_the_cpu(st, monkeypatch):
     ["--draft-weights", "d.gguf"], ["--draft-layers", "6"], ["--quantized"],
     ["--weights-int8"], ["--weights", "int8"],
     ["--continuous", "--phase", "decode"], ["--weights", "model.gguf"],
+    ["--gamma", "4"], ["--spec-min-acceptance", "0.5"],
 ])
 def test_flags_not_yet_ported_exit_nonzero(flags):
     with pytest.raises(SystemExit) as exc:

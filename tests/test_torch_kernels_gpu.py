@@ -9,7 +9,10 @@ running only the port need not have; this file imports no JAX).
 Tolerances: f32 attention atol 1e-5 (online vs one-pass softmax sums
 in another order); bf16 attention atol 2e-2 against the plain math run
 in f32 on the same bf16 inputs (the kernel rounds probabilities to
-bf16 before P.V, and the output to bf16); K1's row max and sum at
+bf16 before P.V, and the output to bf16), and K4 in bf16 per element
+within K1's limit in chip_smoke.py: one bf16 ulp of |ref| (2^-7 |ref|)
+plus 2^-8 of the attention-weighted mean of |V| (the probabilities'
+rounding) plus 1e-5; K1's row max and sum at
 1e-5 relative; K6 (the attention backward) in f32 within
 1e-5 * max(1, max |ref|), and in bf16 per element within one bf16 ulp
 of the f32 reference (2^-7 |ref|: the kernel's f32 result and the
@@ -30,7 +33,7 @@ import torch
 from libsplinter_tpu_torch.ops import _cuda
 from libsplinter_tpu_torch.ops.flash_attention import (
     _pad_seq, causal_attention_plain, causal_flash_attention,
-    flash_attention, flash_attention_plain, flash_bwd_cuda,
+    causal_fwd_cuda, flash_attention, flash_attention_plain, flash_bwd_cuda,
     flash_bwd_plain_and_terms, flash_fwd_cuda, flash_row_stats_plain)
 from libsplinter_tpu_torch.ops.similarity import (
     _cosine_scores_plain, _fused_topk_plain, _stable_topk,
@@ -225,12 +228,34 @@ def _causal_ref(q, kk, vv, pos, start):
     return causal_attention_plain(q.float(), kk, vv, pos, start)
 
 
+def _causal_check(got, q, kk, vv, pos, start, what):
+    """K4 against its plain version in f32 on the same values: f32
+    within 1e-5; bf16 per element within 2^-7 |ref| + 2^-8 P.|V| +
+    1e-5 (one bf16 ulp of the output, the probabilities rounded to bf16
+    before P.V).  Returns the worst share of the limit."""
+    ref = _causal_ref(q, kk, vv, pos, start)
+    if got.dtype == torch.float32:
+        lim = torch.full_like(ref, 1e-5)
+    else:
+        lim = (2.0 ** -7 * ref.abs() + 2.0 ** -8
+               * _causal_ref(q, kk, vv.abs(), pos, start) + 1e-5)
+    diff = (got.float() - ref.to(got.dtype).float()).abs()
+    worst = (diff / lim).max().item()
+    assert worst <= 1.0, (f"{what}: max err {diff.max().item()}, "
+                          f"{worst:.3f} of its limit")
+    return worst
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,t,pos,starts,kh,d", [
     (256, 512, 0, (0, 100, 256), 4, 64),    # left pad + a batch-pad row
     (100, 256, 60, (0, 90, 256), 2, 64),    # joiner-style pos > 0, ragged S
     (64, 128, 64, (10, 70, 128), 1, 16),    # GQA rep 4 at the window tail
     (130, 200, 0, (0, 3, 200), 2, 128),     # T not a multiple of the tile
+    (512, 512, 0, (120, 300, 512), 4, 64),  # a whole-window prefill, large
+    #                                         starts (B=1 S=2048's shape)
+    (128, 128, 0, (0, 40, 128), 2, 32),     # warps 0-1 keyless, 2-3 see
+    #                                         key tile 0 only, 4-7 both
 ])
 def test_causal_matches_plain(cuda, dtype, s, t, pos, starts, kh, d):
     rng = np.random.default_rng(s + t + pos + d)
@@ -239,29 +264,63 @@ def test_causal_matches_plain(cuda, dtype, s, t, pos, starts, kh, d):
     before = _cuda.LAUNCHES["causal_fwd"]
     got = causal_flash_attention(q, kk, vv, pos, start)
     assert _cuda.LAUNCHES["causal_fwd"] == before + 1
-    ref = _causal_ref(q, kk, vv, pos, start)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got.float()).all()
-    atol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), ref.to(dtype).float(),
-                               atol=atol, rtol=0)
+    _causal_check(got, q, kk, vv, pos, start, f"S={s} T={t} pos={pos}")
     # a query with no visible key is the mean of V over all T slots
     mean = vv[2].float().mean(dim=0).repeat_interleave(4 // kh, dim=0)
-    torch.testing.assert_close(got[2].float(), mean[None].expand(s, -1, -1),
-                               atol=atol, rtol=0)
+    lim = 1e-5
+    if dtype == torch.bfloat16:
+        abs_mean = vv[2].float().abs().mean(dim=0)
+        lim = (2.0 ** -7 * mean.abs() + 2.0 ** -8
+               * abs_mean.repeat_interleave(4 // kh, dim=0) + 1e-5)
+    assert ((got[2].float() - mean[None]).abs() <= lim).all()
 
 
 def test_causal_takes_a_row_of_the_batch_cache(cuda):
     """join_row prefills one row of the live batch cache: a (1, T, KH, D)
-    slice, at pos > 0."""
-    rng = np.random.default_rng(11)
-    q, kk, vv = _causal_inputs(rng, 4, 64, 256, 4, 2, 64, torch.float32,
-                               cuda)
-    start = torch.tensor([150], dtype=torch.int32, device=cuda)
-    got = causal_flash_attention(q[2:3], kk[2:3], vv[2:3], 128, start)
-    ref = _causal_ref(q[2:3], kk[2:3], vv[2:3], 128, start)
-    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    slice, at pos > 0, in f32 and in bf16 (whose 16-byte check the row
+    view passes)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(11)
+        q, kk, vv = _causal_inputs(rng, 4, 64, 256, 4, 2, 64, dtype, cuda)
+        start = torch.tensor([150], dtype=torch.int32, device=cuda)
+        got = causal_flash_attention(q[2:3], kk[2:3], vv[2:3], 128, start)
+        _causal_check(got, q[2:3], kk[2:3], vv[2:3], 128, start,
+                      f"join_row {dtype}")
+
+
+def test_causal_takes_a_fused_qkv_split(cuda):
+    """bf16 q and a k/v cache split from one fused projection pass the
+    16-byte check and match the plain version."""
+    rng = np.random.default_rng(12)
+    qkv = torch.from_numpy(rng.standard_normal((2, 256, 3 * 128))
+                           .astype(np.float32)).to(cuda, torch.bfloat16)
+    q, kk, vv = (x.reshape(2, 256, 2, 64) for x in qkv.split(128, dim=-1))
+    start = torch.tensor([0, 90], dtype=torch.int32, device=cuda)
+    got = causal_flash_attention(q[:, 128:], kk, vv, 128, start)
+    _causal_check(got, q[:, 128:], kk, vv, 128, start, "fused qkv")
+
+
+def test_causal_rejects_misaligned_views(cuda):
+    """A bf16 view whose base or row stride is not a multiple of 16
+    bytes raises instead of launching."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 2 * 64 + 1))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    shifted = x[..., 1:].reshape(2, 64, 2, 64)    # base off by 2 bytes
+    strided = x[..., :-1].reshape(2, 64, 2, 64)   # row stride 258 bytes
+    good = strided.contiguous()
+    start = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = _cuda.LAUNCHES["causal_fwd"]
+    for q, kk, vv in ((shifted, good, good), (good, strided, good),
+                      (good, good, strided)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            causal_fwd_cuda(q, kk, vv, 0, start)
+    assert _cuda.LAUNCHES["causal_fwd"] == before
+    causal_fwd_cuda(good, good, good, 0, start)       # aligned: launches
+    assert _cuda.LAUNCHES["causal_fwd"] == before + 1
 
 
 def test_decoder_prefill_through_k4_matches_plain_attention(cuda):
@@ -428,10 +487,12 @@ def _tie_lane(rng, n, d, dev):
     return vec, mask
 
 
-@pytest.mark.parametrize("nq", [1, 8, 32, 256])
+@pytest.mark.parametrize("nq", [1, 8, 32, 129, 256, 300])
 @pytest.mark.parametrize("k", [1, 10, 16, 128])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_fused_topk_identical_to_plain(cuda, nq, k, bf16):
+    """nq = 129 and 300 span several query tiles, the last one
+    partial."""
     rng = np.random.default_rng(nq * 1000 + k)
     vec, mask = _tie_lane(rng, 20000, 96, cuda)
     qry = torch.cat([vec[[5]], _lane(rng, nq - 1, 96, cuda)])
@@ -443,16 +504,65 @@ def test_fused_topk_identical_to_plain(cuda, nq, k, bf16):
         assert got_i[0, :3].tolist() == [5, 20000 // 3, 10000]
 
 
+@pytest.mark.parametrize("d", [100, 99, 3])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_topk_any_depth(cuda, d, bf16):
+    """d = 100 ends in a partial staged chunk; d = 99 and 3 leave the
+    rows unaligned to 16 bytes, so the kernel loads them by 4-byte
+    copies (never the plain version)."""
+    rng = np.random.default_rng(d)
+    vec, mask = _tie_lane(rng, 7000, d, cuda)
+    qry = torch.cat([vec[[5]], _lane(rng, 40, d, cuda)])
+    for k in (16, 128):
+        before = _cuda.LAUNCHES["fused_topk"]
+        got_s, got_i = fused_topk_cuda(vec, qry, k, mask, mxu_bf16=bf16)
+        assert _cuda.LAUNCHES["fused_topk"] == before + 1
+        ref_s, ref_i = _fused_topk_plain(vec, qry, k, mask, mxu_bf16=bf16)
+        torch.testing.assert_close(got_s, ref_s, atol=0, rtol=0)
+        assert torch.equal(got_i, ref_i)
+    # a base off 16 bytes takes the same loader
+    got_s, got_i = fused_topk_cuda(vec[1:], qry[1:], 16)
+    ref_s, ref_i = _fused_topk_plain(vec[1:], qry[1:], 16)
+    assert torch.equal(got_i, ref_i) and torch.equal(got_s, ref_s)
+
+
+@pytest.mark.parametrize("nq", [8, 32, 256])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_topk_ties_at_the_kth_score(cuda, nq, bf16):
+    """Hundreds of rows equal query 0's k-th score: runs inside one row
+    tile, across tile edges (64, 128, 256 rows) and in tiles that other
+    blocks own, so survivors pushed out of row order meet equality; the
+    smallest rows must win, as in the plain version."""
+    rng = np.random.default_rng(nq + 7)
+    n, d = 40000, 96
+    vec, mask = _tie_lane(rng, n, d, cuda)
+    x = vec[5].clone()
+    rows = np.r_[250:262, 1000:1200, 4090:4110, 8190:8200,
+                 np.arange(300, n, 977)]
+    vec[torch.from_numpy(rows).to(cuda)] = x
+    vec[6000:6040] = 2.0 * x                     # colinear: equal cosine
+    qry = torch.cat([vec[[5]], _lane(rng, nq - 1, d, cuda)])
+    for k in (16, 128):
+        got_s, got_i = fused_topk_cuda(vec, qry, k, mask, mxu_bf16=bf16)
+        ref_s, ref_i = _fused_topk_plain(vec, qry, k, mask, mxu_bf16=bf16)
+        torch.testing.assert_close(got_s, ref_s, atol=0, rtol=0)
+        assert torch.equal(got_i, ref_i)
+        assert (got_s[0] == got_s[0, 0]).all()   # all k tie at the top
+
+
 def test_fused_topk_fewer_candidates_than_k(cuda):
-    rng = np.random.default_rng(3)
-    vec = torch.zeros(3000, 64, device=cuda)
-    vec[[4, 1500, 2999]] = _lane(rng, 3, 64, cuda)
-    qry = _lane(rng, 8, 64, cuda)
-    s, i = fused_topk_cuda(vec, qry, 10)
-    assert (s[:, 3:] <= -1e29).all() and (i[:, 3:] == -1).all()
-    assert sorted(i[0, :3].tolist()) == [4, 1500, 2999]
-    ref_s, ref_i = _fused_topk_plain(vec, qry, 10)
-    assert torch.equal(i, ref_i)
+    """Three candidates: the (-1e30, -1) filler past them, at k = 10 and
+    k = 128, on both arms."""
+    for k, bf16 in ((10, False), (128, False), (10, True), (128, True)):
+        rng = np.random.default_rng(3)
+        vec = torch.zeros(3000, 64, device=cuda)
+        vec[[4, 1500, 2999]] = _lane(rng, 3, 64, cuda)
+        qry = _lane(rng, 8, 64, cuda)
+        s, i = fused_topk_cuda(vec, qry, k, mxu_bf16=bf16)
+        assert (s[:, 3:] <= -1e29).all() and (i[:, 3:] == -1).all()
+        assert sorted(i[0, :3].tolist()) == [4, 1500, 2999]
+        ref_s, ref_i = _fused_topk_plain(vec, qry, k, mxu_bf16=bf16)
+        assert torch.equal(i, ref_i) and torch.equal(s, ref_s)
 
 
 @pytest.mark.parametrize("k", [129, 300])
