@@ -10,28 +10,32 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and count, nvidia-smi's name + power limit;
   2. build: compile the kernels (csrc/*.cu, one nvcc per source, all
      started together), print the build seconds, ptxas' registers and
-     spills per kernel of K1/K2/K4/K6 (a summary for the others; the
-     D = 64 tensor-core kernels must not spill) and the HMMA/HGMMA count
-     of K1's, K4's and K6's SASS (cuobjdump -sass; must be above 0);
+     spills per kernel (the D = 64 tensor-core kernels and every D = 64
+     K5 kernel must not spill) and the HMMA/HGMMA count of K1's, K4's
+     and K6's SASS (cuobjdump -sass; must be above 0);
   3. kernels: each kernel against its plain version at the main path's
      shapes (K1 flash attention at B=8 S=2048 and B=32 S=512, bf16 and
      f32, its row max/sum for K6 against the plain helper and its output
      identical with and without them; K6, its backward, at B=8 S=2048
      and B=16 S=512, bf16 and f32, with SDPA's backward as the
-     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores and K2 fused
-     top-k over a 1,048,576 x 768 f32 lane, K2 at Q = 8, 32 and 256 by
-     k = 16 and 128 with its share of the bound; K4 causal prefill
+     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores at Q = 8, 32
+     and 256 and K2 fused top-k at Q = 8, 32 and 256 by k = 16 and 128,
+     over a 1,048,576 x 768 f32 lane, with their share of the bound; K4
+     causal prefill
      attention over a 2048-slot cache at B=8 S=1024, B=1 S=2048, a
      joiner at pos > 0 and GQA 12/4, bf16 and f32, each with queries
      that see no key; K5 ragged paged attention over a 513-block pool
      at B=32 H=12 D=64 page 128 with seeded lengths, a dead row and a
      page-boundary row, over bf16, f32, int8 and int4 pools, GQA 12/4,
-     and a 64-token multi-query stack, each case also launched with f32
-     queries over f32 or quantized pools and held to 1e-5), with
-     CUDA-event times of the kernel, the plain version and a PyTorch
-     yardstick call the port never makes, beside the bound (the
-     larger of bytes / 3.35 TB/s and FLOPs / the card's peak for the
-     input type);
+     8 long live rows of 32, and a 64-token multi-query stack, each
+     case with its split count and also launched with f32 queries over
+     f32 or quantized pools and held to 1e-5), with CUDA-event times of
+     the kernel, the plain version and a PyTorch yardstick call the
+     port never makes, beside the bound (the larger of bytes / 3.35
+     TB/s and FLOPs / the card's peak for the input type).  K5 and its
+     yardstick are timed by replaying a CUDA graph of 20 calls: K5 takes
+     less device time than its wrapper's host work, so events around
+     eager calls would time the host (that pace is printed beside);
   4. end to end: a file-backed store with 1,048,576 slots of 768-d
      vectors (~1,000,000 committed through the store's batch commit),
      the embedder at full Nomic-Embed-Text-v1.5 width (bf16, seeded
@@ -73,7 +77,9 @@ Phases (any failure exits non-zero and prints no result line):
      forward;
   8. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
-     (K5) and 7 (K6), each counted from 0 just before its path runs.
+     (K5, by query tokens and by splits: a launch of more than one
+     split runs the combine kernel too) and 7 (K6), each counted from 0
+     just before its path runs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -168,6 +174,35 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps: int = 20, loops: int = 5) -> float:
+    """Mean ms per call of `reps` back-to-back calls captured in one
+    CUDA graph, replayed `loops` times between CUDA events: the device
+    time of a call whose own host work (a wrapper's checks and
+    allocations) would otherwise set the pace of the launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(loops):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / (reps * loops)
+
+
 def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / MEM_BPS * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
@@ -211,7 +246,8 @@ NO_SPILL = ("flash_fwd_mma_kernel<64>", "bwd_dkdv_mma_kernel<64>",
             "bwd_dq_mma_kernel<64>", "causal_fwd_mma_kernel<64>")
 # kernels whose ptxas lines are printed one by one, and whose SASS must
 # hold tensor-core instructions
-PTXAS_EACH = ("flash_fwd", "flash_bwd", "causal_fwd", "fused_topk")
+PTXAS_EACH = ("flash_fwd", "flash_bwd", "causal_fwd", "fused_topk",
+              "cosine_scores", "paged_fwd")
 TENSOR_CORE = ("flash_fwd", "flash_bwd", "causal_fwd")
 
 
@@ -276,6 +312,12 @@ def phase_build():
             if fn in table:
                 check(table[fn][1] == 0, f"{fn} spills {table[fn][1]} "
                       f"bytes")
+        if name == "paged_fwd":          # every K5 kernel at D = 64
+            d64 = {fn: sp for fn, (_, sp) in table.items()
+                   if fn.startswith("paged_fwd_kernel<")
+                   and fn.split(", ")[2] == "64"}
+            check(len(d64) == 14, f"K5's D = 64 kernels: {sorted(d64)}")
+            check(not any(d64.values()), f"K5 D = 64 spills: {d64}")
     for name in TENSOR_CORE:
         n = _sass_mma_count(name)
         log(f"  sass {name}: {n} HMMA/HGMMA instructions (tensor cores)")
@@ -597,8 +639,10 @@ def phase_causal(results):
 # rows of the continuous lane's batch at page 128 with P = 16 table
 # entries (a 2048 window), H = 12, D = 64; the lengths are seeded in
 # [1, 2047] with a dead row (0) and a row ending on a page boundary.
-# The multi-query case is a suffix prefill's bucket-64 stack on one row
-# at length 700.
+# The few-live case is the batch a decode step of `_step_costs` sees, 8
+# live rows and 24 dead, with the live rows long (1500-2047), where the
+# split over pages matters most.  The multi-query case is a suffix
+# prefill's bucket-64 stack on one row at length 700.
 PAGED_MAIN = "B=32 S=1 H=12 KH=12 page=128 P=16 bf16"
 
 
@@ -608,8 +652,15 @@ def _paged_lengths(b):
     return lens
 
 
+def _few_live_lengths(b, live=8):
+    lens = np.zeros(b, np.int64)
+    lens[:live] = np.random.default_rng(19).integers(1500, 2048, live)
+    return lens
+
+
 PAGED_CASES = (
     (1, 12, "bf16", _paged_lengths(32)),
+    (1, 12, "bf16", _few_live_lengths(32)),         # 8 live rows of 32
     (1, 12, "f32", _paged_lengths(32)),
     (1, 12, "int8", _paged_lengths(32)),
     (1, 12, "int4", _paged_lengths(32)),
@@ -671,8 +722,10 @@ def _paged_bound(lens, s, h, kh, d, page, n_pages, kind, qelt):
 
 
 def _paged_shape(lens, s, kh, kind):
+    live = int((lens > 0).sum())
     return (f"B={len(lens)} S={s} H=12 KH={kh} page=128 P=16 {kind}"
-            + (f" len={int(lens[0])}" if len(lens) == 1 else ""))
+            + (f" len={int(lens[0])}" if len(lens) == 1 else "")
+            + (f" live={live}" if live < len(lens) - 1 else ""))
 
 
 def phase_paged(results):
@@ -680,9 +733,10 @@ def phase_paged(results):
     import torch.nn.functional as F
 
     from libsplinter_tpu_torch.ops.paged_attention import (
-        dequantize_pool, paged_attention, paged_attention_plain)
+        _paged_plan, dequantize_pool, paged_attention, paged_attention_plain)
 
     page, n_pages, h, d = 128, 16, 12, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for s, kh, kind, lens in PAGED_CASES:
         q, kp, vp, scales, tables, lengths = _paged_inputs(s, kh, kind, lens)
         kw = {} if scales is None else {"k_scales": scales[0],
@@ -731,9 +785,13 @@ def phase_paged(results):
         dead = int((~sees).sum())
         check(bool((g4[~sees] == 0).all() and (g32[~sees] == 0).all()),
               "K5 dead rows not exactly 0")
-        reps = 20 if s == 1 else 50
-        ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lengths,
-                                             **kw), reps=reps)
+        # the kernel's device time from graph replays; the wrapper's own
+        # pace (its checks and allocations on the host) beside it
+        ms = graph_ms(lambda: paged_attention(q, kp, vp, tables, lengths,
+                                              **kw))
+        wrapper_ms = cuda_ms(lambda: paged_attention(
+            q, kp, vp, tables, lengths, **kw), reps=50)
+        pps, splits = _paged_plan(len(lens), kh, n_pages, page, s, sms)
         plain_ms = cuda_ms(lambda: paged_attention_plain(
             q, kp, vp, tables, lengths, *(scales or ())), reps=3)
 
@@ -748,7 +806,7 @@ def phase_paged(results):
             return [x[t].permute(0, 2, 1, 3, 4).reshape(
                 len(lens), kh, n_pages * page, d) for x in (ks, vs)]
 
-        gather_ms = cuda_ms(gather, reps=5)
+        gather_ms = graph_ms(gather, reps=5)
         kd, vd = gather()
         qt = (q[:, None] if s == 1 else q).transpose(1, 2)
         keys = torch.arange(n_pages * page, device="cuda")
@@ -760,21 +818,26 @@ def phase_paged(results):
             return F.scaled_dot_product_attention(
                 qt, kd, vd, attn_mask=mask, enable_gqa=kh < h)
 
-        lib_ms = cuda_ms(sdpa, reps=reps)
+        lib_ms = graph_ms(sdpa)
         lib = sdpa().transpose(1, 2).float()
         lib_err = (lib[sees] - g4[sees]).abs().max().item()
         bms, by = _paged_bound(lens, s, h, kh, d, page, n_pages, kind,
                                q.element_size())
         rec = {"shape": _paged_shape(lens, s, kh, kind),
                "max_abs_err": err, "f32_query_err": err32, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "gather_ms": gather_ms, "bound_ms": bms, "bound_by": by}
-        log(f"K5 paged_fwd {rec['shape']}: err {err:.3g} (atol {atol}), "
-            f"f32 queries over f32/quantized pools err {err32:.3g} (atol "
-            f"{F32_ATOL}), {dead} dead query rows exactly 0; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa on the gathered "
-            f"view {lib_ms:.4f} ms (+ gather {gather_ms:.3f} ms; vs kernel "
-            f"{lib_err:.3g}), bound {bms:.4f} ms ({by})")
+               "wrapper_ms": wrapper_ms, "splits": splits,
+               "pages_per_split": pps, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "gather_ms": gather_ms,
+               "bound_ms": bms, "bound_by": by}
+        log(f"K5 paged_fwd {rec['shape']}: {splits} splits of {pps} "
+            f"pages; err {err:.3g} (atol {atol}), f32 queries over "
+            f"f32/quantized pools err {err32:.3g} (atol {F32_ATOL}), "
+            f"{dead} dead query rows exactly 0; kernel {ms:.4f} ms (graph "
+            f"replay; {wrapper_ms:.4f} ms a call through the wrapper), "
+            f"plain {plain_ms:.3f} ms, sdpa on the gathered view "
+            f"{lib_ms:.4f} ms (+ gather {gather_ms:.3f} ms; vs kernel "
+            f"{lib_err:.3g}), bound {bms:.4f} ms ({by}; {bms / ms:.1%} of "
+            f"it)")
         results.setdefault("paged_fwd", []).append(rec)
         del q, kp, vp, fk, fv, scales, got, got32, ref32, kd, vd, lib
         torch.cuda.empty_cache()
@@ -809,7 +872,7 @@ def phase_search_kernels(results, n):
     g = torch.Generator(device="cuda").manual_seed(7)
     lane = torch.randn(n, d, generator=g, device="cuda")
     mask = (torch.rand(n, generator=g, device="cuda") > 0.01).float()
-    for nq in (8, 32):
+    for nq in (8, 32, 256):
         qry = torch.randn(nq, d, generator=g, device="cuda")
         got = cosine_scores_cuda(lane, qry, mask)
         ref = _cosine_scores_plain(lane, qry, mask)
@@ -834,7 +897,8 @@ def phase_search_kernels(results, n):
                "bound_ms": bms, "bound_by": by}
         log(f"K3 cosine_scores {rec['shape']}: err {err:.3g} (atol "
             f"{F32_ATOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"matmul+norms {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+            f"matmul+norms {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}; "
+            f"kernel at {bms / ms:.1%} of it)")
         results.setdefault("cosine_scores", []).append(rec)
         del got, ref
     del lane, mask
@@ -1153,7 +1217,7 @@ def _kernel_class(name: str) -> str:
         return "K1 flash_fwd"
     if "causal_fwd_" in name:           # the bf16 mma and f32 FMA kernels
         return "K4 causal_fwd"
-    if "paged_fwd_kernel" in name:
+    if "paged_fwd_kernel" in name or "paged_combine_kernel" in name:
         return "K5 paged_fwd"
     if any(t in name for t in ("bwd_rowsum_", "bwd_dkdv_", "bwd_dq_")):
         return "K6 flash_bwd"
@@ -1519,7 +1583,8 @@ def phase_continuous(card, timings):
     from libsplinter_tpu_torch.engine.completer import Completer
     from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
     from libsplinter_tpu_torch.ops import _cuda
-    from libsplinter_tpu_torch.ops.paged_attention import LAUNCHES_BY_QTOKENS
+    from libsplinter_tpu_torch.ops.paged_attention import (
+        LAUNCHES_BY_QTOKENS, LAUNCHES_BY_SPLITS)
 
     name = f"/spt-smoke-p{os.getpid()}"
     st = None
@@ -1537,10 +1602,13 @@ def phase_continuous(card, timings):
 
         _cuda.LAUNCHES.reset()                       # the main path
         LAUNCHES_BY_QTOKENS.clear()
+        LAUNCHES_BY_SPLITS.clear()
         n, wall = _drive_continuous(comp, st, P, [wave1, wave2])
         torch.cuda.synchronize()
         counts = dict(_cuda.LAUNCHES)
         by_q = dict(LAUNCHES_BY_QTOKENS)
+        by_split = dict(LAUNCHES_BY_SPLITS)
+        combines = sum(v for k, v in by_split.items() if k > 1)
         tokens = comp.stats.tokens
         cache, pc = comp._paged_cache, comp.prefix_cache
         check(comp.stats.completions == n == 48,
@@ -1550,6 +1618,7 @@ def phase_continuous(card, timings):
         check(by_q.get(1, 0) > 0, f"K5 never launched on decode: {by_q}")
         check(sum(v for k, v in by_q.items() if k > 1) > 0,
               f"K5 never launched on a suffix prefill: {by_q}")
+        check(combines > 0, f"K5 never split a row's pages: {by_split}")
         check(pc.stats.hits >= 20, f"prefix hits {pc.stats.hits} < 20")
         check(pc.stats.cow_copies >= 2, f"COW copies {pc.stats.cow_copies}")
         check(cache.used_pages == 0 and pc.shared_pages() == 0,
@@ -1564,14 +1633,16 @@ def phase_continuous(card, timings):
         log(f"  prefix cache: {pc.stats.hits} hits, {pc.stats.misses} "
             f"misses, {pc.stats.hit_tokens} tokens served from the tree, "
             f"{pc.stats.cow_copies} COW copies; K5 launches by query "
-            f"tokens {by_q}; K4 launches {counts['causal_fwd']} (prefills "
-            f"of 512 tokens and up); join backpressure "
+            f"tokens {by_q}, by splits {by_split} ({combines} of them ran "
+            f"the combine kernel too); K4 launches {counts['causal_fwd']} "
+            f"(prefills of 512 tokens and up); join backpressure "
             f"{comp.stats.join_backpressure}, inflight peak "
             f"{comp.stats.inflight_peak}")
         timings["continuous"] = {
             "requests": n, "tokens": tokens, "wall_s": wall,
             "tokens_per_s": tokens / wall, "prefix_hits": pc.stats.hits,
             "cow_copies": pc.stats.cow_copies, "k5_by_q_tokens": by_q,
+            "k5_by_splits": by_split, "k5_combines": combines,
             "pool_mb": cache.device_mb()}
 
         # warm: 16 of the requests again, then the same under the

@@ -5,38 +5,50 @@
 // `_paged_pallas_quant` and the public `paged_attention`).  Row b's
 // K/V live in pool blocks named by its block table; query token t of
 // the row attends keys j < lengths[b] + t (t = 0 for a decode step,
-// t < S for the multi-query stack of a suffix prefill).  GQA: query
-// head h reads kv head h / rep.
+// t < S for the multi-query stack of a suffix prefill), and never a
+// key past the table's P pages.  GQA: query head h reads kv head
+// h / rep.
 //
-// The TPU kernel runs a sequential (row, kv head, page) grid whose
-// scratch carries the online softmax from page to page.  Here one
-// block of 128 threads owns (row b, kv head g, a tile of RT of the
-// R = S * rep query rows) and loops over the row's keys itself:
-//   - the row's table slice (and, for quantized pools, its per-page
-//     scales) is read into shared memory once;
-//   - only keys below lengths[b] + (the tile's last token) are
-//     streamed — in tiles of 64 key positions, each position mapped
-//     through the table to (block, in-page slot), so any page size
-//     works and a page of 128 is two tiles — dequantized (int8 codes,
-//     or int4 nibbles with offset 8, times the page's scale) into f32
-//     rows of shared memory with 16-byte loads;
-//   - Q.K^T per tile (thread = key), an online f32 softmax per query
-//     row (warp = row), then P.V (thread = output column), all f32 FMA;
-//   - a query row that saw no key (l = 0: a dead row, lengths = 0)
-//     gets exact zeros, as the reference kernel writes.
-// Bound on an H100: the bytes of each row's visible K/V (decode is a
-// few FLOPs per byte); this first version keeps the FLOPs on f32 FMA
-// and issues one tile at a time — mma, TMA and split-K across long
-// rows are later work.
+// Bound on an H100: the bytes of each row's visible K/V.  Decode is a
+// GEMV over the cache (a few FLOPs per byte), and the rows are ragged,
+// so the design is split-K ("flash-decoding"):
 //
-// Semantics kept from the reference kernel: logits in f32 (scale
-// 1/sqrt(D)) with the finite -1e30 for masked keys and a running max
-// that starts at -1e30 (a tile whose keys are all masked for a row
-// leaves its state untouched); probabilities are rounded to the float
-// pool's dtype before P.V (quantized pools: the dequantized f32 values,
-// the V scale folded in); int8 and int4 K scales fold into the
-// dequantized keys (the reference folds them into the logits: the
-// same product, rounded once elsewhere).
+//   - one block of 4 warps owns (row b, kv head g, a tile of RT of the
+//     R = S * rep query rows, split s): the keys of `pps` consecutive
+//     table pages (the plan, ops/paged_attention.py `_paged_plan`,
+//     picks pps from the shapes alone, so the launch never reads
+//     lengths on the host).  A long row is spread over many blocks and
+//     the card fills however ragged the lengths are; a split past the
+//     tile's last visible key exits at once.  All rows of the tile
+//     share every K/V load;
+//   - no staging of keys in shared memory: a key's row is C 16-byte
+//     chunks (8 for bf16 at D = 64, 4 for int8, 2 for int4, 16 for
+//     f32), read by a group of C lanes with ld.global.nc, so a warp
+//     reads 32 / C whole keys a load, and each thread keeps 4 K and 4 V
+//     loads in flight.  Codes are dequantized in registers;
+//   - q sits in registers split the same way (each lane the E = D / C
+//     columns of its chunk, every row of the tile); the dot products end
+//     in a shuffle reduction within the lane group.  Each lane group
+//     keeps its own online softmax per row and P.V accumulator for its
+//     chunk's columns, rescaled once per 4 keys;
+//   - at the end of the split the lane groups merge by shuffles, the
+//     warps in shared memory.  With one split the block writes the
+//     output; otherwise it writes (m, l, acc) in f32 to scratch, and
+//     `paged_combine_kernel` merges the splits in split order
+//     (out = sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s, no atomics).
+//     The combine reads each row's live split count from lengths on the
+//     device, so it never reads a split that no block wrote.
+//
+// Semantics kept from the reference kernel: f32 logits scaled by
+// 1/sqrt(D); masked keys get p = 0 and a running max that starts at
+// -1e30; int8 and int4 K scales fold into the logit once per page
+// (dot(q, codes) * (scale * k_scale), as the reference does), V scales
+// into P.V; probabilities are rounded to bf16 before P.V over bf16
+// pools.  Split- and group-local maxima move where that rounding
+// happens (p relative to a local max, rescaled after rounding): each
+// p_j still moves by at most 2^-8 p_j, the term of the bf16 limit
+// that already bounds it.  A row that sees no key (l = 0: a dead row,
+// or a whole batch of them) gets exact zeros.
 #include <cstdint>
 
 #include "attention.cuh"
@@ -50,45 +62,45 @@ using attn::to_f;
 constexpr float NEG_INF = -1e30f;
 constexpr int NT = 128;      // threads per block
 constexpr int NW = NT / 32;  // warps per block
-constexpr int BK = 64;       // key positions per streamed tile
-constexpr int UNROLL = 4;    // 16-byte loads in flight per thread
+constexpr int UNROLL = 4;    // K and V loads in flight per thread
 
 enum Kind { KV_F32 = 0, KV_BF16 = 1, KV_I8 = 2, KV_I4 = 3 };
 
-// one (key, kv head) row of a pool: D values in BYTES bytes
+// one (key, kv head) row of a pool: D values in BYTES bytes, read as C
+// 16-byte chunks of E values each
 template <int KIND, int D>
 struct KvRow {
   static constexpr int BYTES = KIND == KV_F32    ? D * 4
                                : KIND == KV_BF16 ? D * 2
                                : KIND == KV_I8   ? D
                                                  : D / 2;
-  static constexpr int CHUNKS = BYTES / 16;
-  static_assert(BYTES % 16 == 0, "pool rows must be whole 16-byte chunks");
+  static constexpr int C = BYTES / 16;  // lanes a key
+  static constexpr int KPW = 32 / C;    // keys a warp reads a load
+  static constexpr int E = D / C;       // values a lane
+  // the wide row tile: q and the accumulator take 32 registers each
+  static constexpr int W = 32 / E;
+  static_assert(BYTES % 16 == 0 && C <= 32, "rows of whole 16-byte chunks");
 
-  // decode 16-byte chunk `ch` of a row into dst (D floats), quantized
-  // codes times `scale`
-  __device__ __forceinline__ static void put(const uint4& raw, int ch,
-                                             float scale, float* dst) {
+  // the column of value e of chunk ch (int4: byte i holds value i in
+  // its low nibble and value i + D/2 in its high one)
+  __device__ __forceinline__ static int col(int ch, int e) {
+    if constexpr (KIND == KV_I4)
+      return e < E / 2 ? ch * (E / 2) + e : D / 2 + ch * (E / 2) + e - E / 2;
+    else
+      return ch * E + e;
+  }
+
+  // value e of a chunk as f32 (quantized pools: the code)
+  __device__ __forceinline__ static float get(const uint4& raw, int e) {
     if constexpr (KIND == KV_F32) {
-      const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dst[ch * 4 + i] = f[i];
+      return reinterpret_cast<const float*>(&raw)[e];
     } else if constexpr (KIND == KV_BF16) {
-      const __nv_bfloat16* f = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[ch * 8 + i] = __bfloat162float(f[i]);
+      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&raw)[e]);
     } else if constexpr (KIND == KV_I8) {
-      const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) dst[ch * 16 + i] = (float)c[i] * scale;
+      return (float)reinterpret_cast<const int8_t*>(&raw)[e];
     } else {
-      const uint8_t* c = reinterpret_cast<const uint8_t*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int pc = ch * 16 + i;  // byte j: element j, element j + D/2
-        dst[pc] = (float)((int)(c[i] & 0xF) - 8) * scale;
-        dst[pc + D / 2] = (float)((int)(c[i] >> 4) - 8) * scale;
-      }
+      const uint8_t c = reinterpret_cast<const uint8_t*>(&raw)[e % (E / 2)];
+      return (float)((int)(e < E / 2 ? c & 0xF : c >> 4) - 8);
     }
   }
 };
@@ -102,46 +114,8 @@ __device__ __forceinline__ float pv_round(float p) {
     return p;
 }
 
-// stream keys [j0, j0 + nk) of one pool into dst rows of LD floats;
-// rows nk..BK-1 are zeroed
-template <int KIND, int D, int LD>
-__device__ __forceinline__ void load_tile(
-    float* dst, const uint8_t* pool, const int* tab_s, const float* sc_s,
-    int j0, int nk, int page, long long head_off, long long block_stride) {
-  using Row = KvRow<KIND, D>;
-  constexpr int TOTAL = BK * Row::CHUNKS;
-  for (int e0 = 0; e0 < TOTAL; e0 += NT * UNROLL) {
-    uint4 raw[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int e = e0 + u * NT + threadIdx.x;
-      const int key = e / Row::CHUNKS, ch = e % Row::CHUNKS;
-      raw[u] = make_uint4(0, 0, 0, 0);
-      if (e < TOTAL && key < nk) {
-        const int j = j0 + key, p = j / page;
-        const long long off = (long long)tab_s[p] * block_stride + head_off +
-                              (long long)(j - p * page) * Row::BYTES +
-                              ch * 16;
-        raw[u] = __ldg(reinterpret_cast<const uint4*>(pool + off));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int e = e0 + u * NT + threadIdx.x;
-      if (e >= TOTAL) continue;
-      const int key = e / Row::CHUNKS, ch = e % Row::CHUNKS;
-      float* row = dst + key * LD;
-      if (key < nk) {
-        const float scale = sc_s ? sc_s[(j0 + key) / page] : 1.f;
-        Row::put(raw[u], ch, scale, row);
-      } else {
-        // a key past the tile's end: zero (no garbage reaches Q.K^T)
-        constexpr int PER = D / Row::CHUNKS;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) row[ch * PER + i] = 0.f;
-      }
-    }
-  }
+__device__ __forceinline__ uint4 load_nc(const uint8_t* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 template <typename T, int KIND, int D, int RT>
@@ -149,151 +123,249 @@ __global__ void __launch_bounds__(NT) paged_fwd_kernel(
     const T* __restrict__ q, const uint8_t* __restrict__ kpool,
     const uint8_t* __restrict__ vpool, const float* __restrict__ kscales,
     const float* __restrict__ vscales, const int* __restrict__ tables,
-    const int* __restrict__ lengths, T* __restrict__ out, int S, int KH,
-    int rep, int page, int P, long long qb, long long qs, long long qh,
-    long long ob, long long os, long long oh, float scale) {
-  constexpr bool QUANT = KIND >= KV_I8;
-  constexpr int LDK = D + 1;    // padded K rows: Q.K^T reads down a column
-  constexpr int G = NT / D;     // P.V: row groups of D threads
-  constexpr int RQ = RT / 2;    // Q.K^T rows per thread (2 row groups)
-  constexpr int RS = RT / NW;   // softmax rows per warp
-  constexpr int RV = RT / G;    // P.V rows per thread
-  static_assert(RT % 2 == 0 && RT % NW == 0 && RT % G == 0, "row tile");
+    const int* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc, int S,
+    int KH, int rep, int page, int page_shift, int P, int pps, int nsplit,
+    long long qb, long long qs, long long qh, long long ob, long long os,
+    long long oh, float scale) {
   using Row = KvRow<KIND, D>;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // (RT, D)
-  float* Ks = Qs + RT * D;           // (BK, D + 1)
-  float* Vs = Ks + BK * LDK;         // (BK, D)
-  float* Ps = Vs + BK * D;           // (RT, BK) logits, then probabilities
-  float* alpha_s = Ps + RT * BK;     // (RT,) rescale of the tile
-  float* l_s = alpha_s + RT;         // (RT,) final softmax sums
-  int* tab_s = reinterpret_cast<int*>(l_s + RT);       // (P,)
-  float* ks_s = reinterpret_cast<float*>(tab_s + P);   // (P,) quantized
-  float* vs_s = ks_s + P;                              // (P,)
+  constexpr int C = Row::C, E = Row::E, KPW = Row::KPW;
+  constexpr bool QUANT = KIND >= KV_I8;
+  constexpr int KI = UNROLL * NW * KPW;  // keys a block reads a step
+  __shared__ float red_acc[NW][RT][D];   // the warps' accumulators
+  __shared__ float red_ml[NW][RT][2];    // and their (m, l)
+  extern __shared__ float dyn[];         // the split's pages:
+  int* tab_s = reinterpret_cast<int*>(dyn);  // block ids,
+  float* ks_s = dyn + pps;                   // scale * K scales,
+  float* vs_s = ks_s + pps;                  // V scales
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int b = blockIdx.z, g = blockIdx.y, r0 = blockIdx.x * RT;
-  const int R = S * rep;
-  const int len = max(lengths[b], 0);
-  const int r_last = min(r0 + RT, R) - 1;
-  // the tile's last query token sees keys j < len + t_last
-  const int kv_end = min(len + r_last / rep, P * page);
-  const int n_pages = (kv_end + page - 1) / page;
+  const int ch = lane % C, slot = lane / C;
+  const int b = blockIdx.z, g = blockIdx.y;
+  const int split = blockIdx.x % nsplit, r0 = blockIdx.x / nsplit * RT;
+  const int R = S * rep, nr = min(RT, R - r0);
+  const int len = max(lengths[b], 0), cap = P * page;
+  // the tile's last row sees the most keys: j < len + its token
+  const int kv_end = min(len + (r0 + nr - 1) / rep, cap);
+  const int k0 = split * pps * page;
+  const int k1 = min(k0 + pps * page, kv_end);
 
-  for (int p = tid; p < n_pages; p += NT) {
-    const int bid = tables[(long long)b * P + p];
-    tab_s[p] = bid;
+  auto out_row = [&](int i) {
+    const int r = r0 + i, t = r / rep, h = g * rep + r % rep;
+    return out + b * ob + t * os + h * oh;
+  };
+  if (k0 >= k1) {
+    // no key of this split is visible to the tile: the combine never
+    // reads it; a lone split owns the output, which is exact zeros
+    if (nsplit == 1)
+      for (int e = tid; e < nr * D; e += NT)
+        out_row(e / D)[e % D] = from_f<T>(0.f);
+    return;
+  }
+
+  const int p0 = split * pps;
+  const int np = (k1 - k0 + page - 1) / page;
+  for (int i = tid; i < np; i += NT) {
+    const int bid = tables[(long long)b * P + p0 + i];
+    tab_s[i] = bid;
     if constexpr (QUANT) {
-      ks_s[p] = kscales[(long long)bid * KH + g];
-      vs_s[p] = vscales[(long long)bid * KH + g];
+      ks_s[i] = scale * kscales[(long long)bid * KH + g];
+      vs_s[i] = vscales[(long long)bid * KH + g];
     }
-  }
-  for (int e = tid; e < RT * D; e += NT) {
-    const int row = e / D, c = e % D, r = r0 + row;
-    float v = 0.f;
-    if (r < R) {
-      const int t = r / rep, h = g * rep + r % rep;
-      v = to_f(q[b * qb + t * qs + h * qh + c]);
-    }
-    Qs[e] = v;
   }
 
-  // softmax state: warp `warp` owns rows warp + NW * i
-  float m[RS], l[RS];
+  // q of the tile's rows (0 past R), this lane's columns; each row's
+  // visible keys of this split: j < lim[i]
+  float qv[RT][E];
+  int lim[RT];
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
+  for (int i = 0; i < RT; ++i) {
+    const int r = r0 + i;
+    lim[i] = 0;
+    if (i < nr) {
+      const int t = r / rep, h = g * rep + r % rep;
+      const T* qr = q + b * qb + t * qs + h * qh;
+#pragma unroll
+      for (int e = 0; e < E; ++e) qv[i][e] = to_f(qr[Row::col(ch, e)]);
+      lim[i] = min(min(len + t, cap), k1);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qv[i][e] = 0.f;
+    }
+  }
+  float m[RT], l[RT], acc[RT][E];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
   }
-  float acc[RV];
-#pragma unroll
-  for (int i = 0; i < RV; ++i) acc[i] = 0.f;
+  __syncthreads();  // the split's pages are staged
 
-  const long long block_stride = (long long)KH * page * Row::BYTES;
-  const long long head_off = (long long)g * page * Row::BYTES;
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    const int nk = min(BK, kv_end - j0);
-    __syncthreads();  // tables/Q written; the last tile's P.V reads done
-    load_tile<KIND, D, LDK>(Ks, kpool, tab_s, QUANT ? ks_s : nullptr, j0,
-                            nk, page, head_off, block_stride);
-    load_tile<KIND, D, D>(Vs, vpool, tab_s, QUANT ? vs_s : nullptr, j0, nk,
-                          page, head_off, block_stride);
-    __syncthreads();
+  const long long bstride = (long long)KH * page * Row::BYTES;
+  const long long hoff = (long long)g * page * Row::BYTES + ch * 16;
+  for (int j0 = k0; j0 < k1; j0 += KI) {
+    uint4 kr[UNROLL], vr[UNROLL];
+    int jj[UNROLL];
+    float ksc[UNROLL], vsc[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + (u * NW + warp) * KPW + slot;
+      jj[u] = j;
+      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      ksc[u] = scale;
+      vsc[u] = 1.f;
+      if (j < k1) {
+        const int jr = j - k0;
+        const int pl = page_shift >= 0 ? jr >> page_shift : jr / page;
+        const long long off = (long long)tab_s[pl] * bstride + hoff +
+                              (long long)(jr - pl * page) * Row::BYTES;
+        kr[u] = load_nc(kpool + off);
+        vr[u] = load_nc(vpool + off);
+        if constexpr (QUANT) {
+          ksc[u] = ks_s[pl];
+          vsc[u] = vs_s[pl];
+        }
+      }
+    }
 
-    {  // Q.K^T: thread = key kk, rows rg + 2 i
-      const int kk = tid % BK, rg = tid / BK;
-      float s[RQ];
+    // Q.K: the lane's share, then the sum over the key's C lanes
+    float x[UNROLL][RT];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) s[i] = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) {
-        const float kv = Ks[kk * LDK + c];
+    for (int u = 0; u < UNROLL; ++u) {
+      float dot[RT];
 #pragma unroll
-        for (int i = 0; i < RQ; ++i)
-          s[i] = fmaf(Qs[(rg + 2 * i) * D + c], kv, s[i]);
+      for (int i = 0; i < RT; ++i) dot[i] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float kv = Row::get(kr[u], e);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) dot[i] = fmaf(qv[i][e], kv, dot[i]);
       }
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) Ps[(rg + 2 * i) * BK + kk] = s[i];
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int off = C / 2; off > 0; off >>= 1)
+          dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
+        x[u][i] = jj[u] < lim[i] ? dot[i] * ksc[u] : NEG_INF;
+      }
     }
-    __syncthreads();
 
-    // online softmax: warp = row, lane = keys lane and lane + 32
+    // online softmax per row over these UNROLL keys
+    float pq[UNROLL][RT];
 #pragma unroll
-    for (int i = 0; i < RS; ++i) {
-      const int row = warp + NW * i;
-      // keys j < limit (never past the table's P pages)
-      const int limit = min(len + (r0 + row) / rep, kv_end);
-      const bool v0 = j0 + lane < limit, v1 = j0 + lane + 32 < limit;
-      const float x0 = v0 ? Ps[row * BK + lane] * scale : NEG_INF;
-      const float x1 = v1 ? Ps[row * BK + lane + 32] * scale : NEG_INF;
-      float mx = fmaxf(x0, x1);
+    for (int i = 0; i < RT; ++i) {
+      float mb = NEG_INF;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mnew = fmaxf(m[i], mx);
-      const float p0 = v0 ? expf(x0 - mnew) : 0.f;
-      const float p1 = v1 ? expf(x1 - mnew) : 0.f;
-      float sum = p0 + p1;
+      for (int u = 0; u < UNROLL; ++u) mb = fmaxf(mb, x[u][i]);
+      const float mn = fmaxf(m[i], mb);
+      const float corr = expf(m[i] - mn);
+      float sum = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m[i] - mnew);
+      for (int u = 0; u < UNROLL; ++u) {
+        const float p = jj[u] < lim[i] ? expf(x[u][i] - mn) : 0.f;
+        sum += p;
+        pq[u][i] = pv_round<KIND>(p) * vsc[u];
+      }
       l[i] = l[i] * corr + sum;
-      m[i] = mnew;
-      Ps[row * BK + lane] = pv_round<KIND>(p0);
-      Ps[row * BK + lane + 32] = pv_round<KIND>(p1);
-      if (lane == 0) alpha_s[row] = corr;
+      m[i] = mn;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= corr;
     }
-    __syncthreads();
-
-    {  // P.V: thread = output column c, rows rg + G i
-      const int c = tid % D, rg = tid / D;
+    // P.V on this lane's columns
 #pragma unroll
-      for (int i = 0; i < RV; ++i) acc[i] *= alpha_s[rg + G * i];
-      for (int k = 0; k < nk; ++k) {
-        const float vv = Vs[k * D + c];
+    for (int u = 0; u < UNROLL; ++u) {
 #pragma unroll
-        for (int i = 0; i < RV; ++i)
-          acc[i] = fmaf(Ps[(rg + G * i) * BK + k], vv, acc[i]);
+      for (int e = 0; e < E; ++e) {
+        const float vv = Row::get(vr[u], e);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i][e] = fmaf(pq[u][i], vv, acc[i][e]);
       }
     }
   }
 
-  if (lane == 0) {
+  // merge the warp's lane groups (lanes ch, ch + C, ...), then the warps
 #pragma unroll
-    for (int i = 0; i < RS; ++i) l_s[warp + NW * i] = l[i];
+  for (int i = 0; i < RT; ++i) {
+    float mw = m[i];
+#pragma unroll
+    for (int off = C; off < 32; off <<= 1)
+      mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, off));
+    const float f = expf(m[i] - mw);
+    float lw = l[i] * f;
+#pragma unroll
+    for (int off = C; off < 32; off <<= 1)
+      lw += __shfl_xor_sync(0xffffffffu, lw, off);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float a = acc[i][e] * f;
+#pragma unroll
+      for (int off = C; off < 32; off <<= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (slot == 0) red_acc[warp][i][Row::col(ch, e)] = a;
+    }
+    if (lane == 0) {
+      red_ml[warp][i][0] = mw;
+      red_ml[warp][i][1] = lw;
+    }
   }
   __syncthreads();
-  const int c = tid % D, rg = tid / D;
+
+  for (int e = tid; e < nr * D; e += NT) {
+    const int i = e / D, c = e % D;
+    float mx = NEG_INF;
 #pragma unroll
-  for (int i = 0; i < RV; ++i) {
-    const int row = rg + G * i, r = r0 + row;
-    if (r >= R) continue;
-    const float lsum = l_s[row];
-    const float v = lsum > 0.f ? acc[i] / fmaxf(lsum, 1e-30f) : 0.f;
-    const int t = r / rep, h = g * rep + r % rep;
-    out[b * ob + t * os + h * oh + c] = from_f<T>(v);
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, red_ml[w][i][0]);
+    float ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float f = expf(red_ml[w][i][0] - mx);
+      ls = fmaf(f, red_ml[w][i][1], ls);
+      a = fmaf(f, red_acc[w][i][c], a);
+    }
+    if (nsplit == 1) {
+      out_row(i)[c] = from_f<T>(ls > 0.f ? a / fmaxf(ls, 1e-30f) : 0.f);
+    } else {
+      const long long pi =
+          (((long long)b * KH + g) * R + r0 + i) * nsplit + split;
+      part_acc[pi * D + c] = a;
+      if (c == 0) {
+        part_ml[pi * 2] = mx;
+        part_ml[pi * 2 + 1] = ls;
+      }
+    }
+  }
+}
+
+// One warp per output row (b, t, h): merge the row's live splits in
+// split order.  A row's live splits are those holding one of its keys,
+// j < min(lengths[b] + t, P * page); a row with none is exact zeros.
+template <typename T>
+__global__ void __launch_bounds__(NT) paged_combine_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    const int* __restrict__ lengths, T* __restrict__ out, int B, int S,
+    int H, int KH, int D, int cap, int split_keys, int nsplit, long long ob,
+    long long os, long long oh) {
+  const long long w = ((long long)blockIdx.x * NT + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (long long)B * S * H) return;
+  const int h = (int)(w % H), t = (int)(w / H % S), b = (int)(w / H / S);
+  const int rep = H / KH, g = h / rep, r = t * rep + h % rep;
+  const int kv = min(max(lengths[b], 0) + t, cap);
+  const int live = (kv + split_keys - 1) / split_keys;
+  const long long base = (((long long)b * KH + g) * S * rep + r) * nsplit;
+  float mx = NEG_INF;
+  for (int s = 0; s < live; ++s) mx = fmaxf(mx, part_ml[(base + s) * 2]);
+  T* o = out + b * ob + t * os + h * oh;
+  for (int c = lane; c < D; c += 32) {
+    float ls = 0.f, a = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float f = expf(part_ml[(base + s) * 2] - mx);
+      ls = fmaf(f, part_ml[(base + s) * 2 + 1], ls);
+      a = fmaf(f, part_acc[(base + s) * D + c], a);
+    }
+    o[c] = from_f<T>(ls > 0.f ? a / fmaxf(ls, 1e-30f) : 0.f);
   }
 }
 
@@ -302,7 +374,8 @@ struct Args {
   const float *kscales, *vscales;
   const int *tables, *lengths;
   void* out;
-  int B, S, H, KH, D, page, P;
+  float *part_ml, *part_acc;
+  int B, S, H, KH, D, page, P, pps;
   long long qb, qs, qh, ob, os, oh;
   float scale;
   cudaStream_t stream;
@@ -311,28 +384,36 @@ struct Args {
 template <typename T, int KIND, int D, int RT>
 int launch(const Args& a) {
   const int rep = a.H / a.KH;
-  const int smem =
-      (RT * D + BK * (D + 1) + BK * D + RT * BK + 2 * RT + 3 * a.P) *
-      (int)sizeof(float);
-  auto kernel = paged_fwd_kernel<T, KIND, D, RT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int nsplit = (a.P + a.pps - 1) / a.pps;
   const long long R = (long long)a.S * rep;
-  dim3 grid((unsigned)((R + RT - 1) / RT), a.KH, a.B);
-  kernel<<<grid, NT, smem, a.stream>>>(
+  const long long nx = (R + RT - 1) / RT * nsplit;
+  if (nx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int shift = -1;
+  if ((a.page & (a.page - 1)) == 0) shift = __builtin_ctz(a.page);
+  const int smem = 3 * a.pps * (int)sizeof(float);
+  dim3 grid((unsigned)nx, a.KH, a.B);
+  paged_fwd_kernel<T, KIND, D, RT><<<grid, NT, smem, a.stream>>>(
       (const T*)a.q, (const uint8_t*)a.kpool, (const uint8_t*)a.vpool,
-      a.kscales, a.vscales, a.tables, a.lengths, (T*)a.out, a.S, a.KH, rep,
-      a.page, a.P, a.qb, a.qs, a.qh, a.ob, a.os, a.oh, a.scale);
+      a.kscales, a.vscales, a.tables, a.lengths, (T*)a.out, a.part_ml,
+      a.part_acc, a.S, a.KH, rep, a.page, shift, a.P, a.pps, nsplit, a.qb,
+      a.qs, a.qh, a.ob, a.os, a.oh, a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return (int)err;
+  const long long rows = (long long)a.B * a.S * a.H;
+  paged_combine_kernel<T><<<(unsigned)((rows * 32 + NT - 1) / NT), NT, 0,
+                            a.stream>>>(
+      a.part_ml, a.part_acc, a.lengths, (T*)a.out, a.B, a.S, a.H, a.KH, a.D,
+      a.P * a.page, a.pps * a.page, nsplit, a.ob, a.os, a.oh);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int KIND, int D>
 int by_rows(const Args& a) {
-  // decode steps carry rep rows per (row, kv head): a small tile; the
-  // multi-query stack tiles its S * rep rows by 16
-  return (long long)a.S * (a.H / a.KH) <= 4 ? launch<T, KIND, D, 4>(a)
-                                             : launch<T, KIND, D, 16>(a);
+  // a decode step without GQA has one row per (row, kv head); the rest
+  // (GQA, the multi-query stack) tile their rows by the wide tile
+  constexpr int W = KvRow<KIND, D>::W;
+  if ((long long)a.S * (a.H / a.KH) == 1) return launch<T, KIND, D, 1>(a);
+  return launch<T, KIND, D, W>(a);
 }
 
 template <typename T, int KIND>
@@ -367,26 +448,32 @@ int by_kind(const Args& a, int kind) {
 
 // q/out: (B, S, H, D) views with D contiguous, element strides given
 // (batch, token, head); f32 (bf16 = 0) or bf16 (bf16 = 1).  Pools:
-// contiguous (n_blocks, KH, page, D) of kind 0 f32, 1 bf16, 2 int8, or
-// (n_blocks, KH, page, D/2) uint8 of kind 3 (int4 packed); kinds 2 and
-// 3 need (n_blocks, KH) f32 scales.  tables: (B, P) int32 block ids;
-// lengths: (B,) int32.  D is 32, 64 or 128.  Returns the CUDA error
-// code (0 = launched).
+// contiguous, 16-byte aligned (n_blocks, KH, page, D) of kind 0 f32,
+// 1 bf16, 2 int8, or (n_blocks, KH, page, D/2) uint8 of kind 3 (int4
+// packed); kinds 2 and 3 need (n_blocks, KH) f32 scales.  tables:
+// (B, P) int32 block ids; lengths: (B,) int32.  D is 32, 64 or 128.
+// pps: table pages a split covers; with ceil(P / pps) > 1 splits,
+// part_ml (B, KH, S * H / KH, splits, 2) and part_acc (..., splits, D)
+// are f32 scratch (any contents).  Returns the CUDA error code (0 =
+// launched).
 extern "C" int sptk_paged_fwd(const void* q, const void* kpool,
                               const void* vpool, const float* kscales,
                               const float* vscales, const int* tables,
-                              const int* lengths, void* out, int B, int S,
-                              int H, int KH, int D, int page, int P, int bf16,
+                              const int* lengths, void* out, float* part_ml,
+                              float* part_acc, int B, int S, int H, int KH,
+                              int D, int page, int P, int pps, int bf16,
                               int kind, long long qb, long long qs,
                               long long qh, long long ob, long long os,
                               long long oh, float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || page <= 0 ||
-      P <= 0 || B > 65535 || KH > 65535 || kind < 0 || kind > 3 ||
-      (kind >= KV_I8 && (kscales == nullptr || vscales == nullptr)))
+      P <= 0 || pps <= 0 || pps > P || B > 65535 || KH > 65535 ||
+      kind < 0 || kind > 3 ||
+      (kind >= KV_I8 && (kscales == nullptr || vscales == nullptr)) ||
+      (pps < P && (part_ml == nullptr || part_acc == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Args a{q,  kpool, vpool, kscales, vscales, tables, lengths,
-               out, B,    S,     H,       KH,      D,      page,
-               P,   qb,   qs,    qh,      ob,      os,     oh,
-               scale, (cudaStream_t)stream};
+  const Args a{q,        kpool, vpool, kscales, vscales, tables, lengths,
+               out,      part_ml, part_acc, B,  S,       H,      KH,
+               D,        page,  P,     pps,     qb,      qs,     qh,
+               ob,       os,    oh,    scale,   (cudaStream_t)stream};
   return bf16 ? by_kind<__nv_bfloat16>(a, kind) : by_kind<float>(a, kind);
 }

@@ -35,10 +35,12 @@ SOURCES = {
     "causal_fwd": "causal_fwd.cu",
     "paged_fwd": "paged_fwd.cu",
 }
-_HEADERS = ("common.cuh", "score_tile.cuh", "topk_tile.cuh",
-            "attention.cuh", "attention_mma.cuh")
+_HEADERS = ("common.cuh", "topk_tile.cuh", "attention.cuh",
+            "attention_mma.cuh")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# SMs of the H100 the launch plans assume when not handed the card's
+H100_SMS = 132
 
 P, I32, I64, F32 = C.c_void_p, C.c_int, C.c_longlong, C.c_float
 
@@ -54,7 +56,8 @@ _SIGNATURES = {
                            I32, I32, I32, C.POINTER(I64), F32, P],
     },
     "cosine_scores": {
-        "sptk_cosine_scores": [P, I64, I32, P, I32, P, P, P, I32, I32, P],
+        "sptk_cosine_scores": [P, I64, I32, P, I32, P, P, P, I32, I32, I32,
+                               P],
     },
     "fused_topk": {
         "sptk_fused_topk": [P, I64, I32, P, I32, P, P, I32, I32, I32, I32,
@@ -66,9 +69,9 @@ _SIGNATURES = {
                             I64, I64, I64, I64, I64, F32, P],
     },
     "paged_fwd": {
-        "sptk_paged_fwd": [P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32,
-                           I32, I32, I32, I32, I64, I64, I64, I64, I64, I64,
-                           F32, P],
+        "sptk_paged_fwd": [P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32,
+                           I32, I32, I32, I32, I32, I32, I64, I64, I64, I64,
+                           I64, I64, F32, P],
     },
 }
 

@@ -30,7 +30,9 @@ Layout and semantics follow the JAX package's ``paged_attention``:
 On CPU tensors ``paged_attention`` runs the plain PyTorch version
 (``paged_attention_plain``, the counterpart of the JAX package's
 ``_paged_ref`` after ``dequantize_pool``); on CUDA tensors it launches
-K5 (csrc/paged_fwd.cu) or raises.  Forward only.
+K5 (csrc/paged_fwd.cu) or raises.  Forward only.  K5 is split-K: each
+block takes the keys of a few table pages (``_paged_plan``, from the
+shapes alone) and a second small kernel merges the splits.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import math
 import torch
 
 from . import _cuda
+from ._cuda import H100_SMS
 
 NEG_INF = -1e30
 
@@ -57,9 +60,20 @@ PAGED_HEAD_DIMS = (32, 64, 128)
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.uint8: 3}
 
+# K5's split plan (csrc/paged_fwd.cu): a split covers whole table pages,
+# at least PAGED_SPLIT_KEYS keys, and the plan takes the fewest splits
+# that give the grid PAGED_WAVES waves of PAGED_BLOCKS_PER_SM blocks on
+# every SM, or as many as the pages allow
+PAGED_SPLIT_KEYS = 256
+PAGED_BLOCKS_PER_SM = 8
+PAGED_WAVES = 2
+PAGED_WIDEST_TILE = 8       # query rows a block takes at most (f32 pools)
+
 # K5 launches by query tokens per row (1 = a decode step, > 1 = the
-# multi-query stack of a suffix prefill); bumped with LAUNCHES
+# multi-query stack of a suffix prefill), and by splits (more than one:
+# the combine kernel ran too); bumped with LAUNCHES
 LAUNCHES_BY_QTOKENS: collections.Counter = collections.Counter()
+LAUNCHES_BY_SPLITS: collections.Counter = collections.Counter()
 
 
 def pack_int4(q):
@@ -121,6 +135,23 @@ def paged_attention_plain(q, k_pool, v_pool, tables, lengths,
     return out[:, 0] if squeeze else out
 
 
+def _paged_plan(b: int, kh: int, n_pages: int, page: int, s: int,
+                sms: int = H100_SMS) -> tuple[int, int]:
+    """(table pages a split covers, splits) for K5 at B rows, KH kv
+    heads, P = n_pages table pages of `page` keys and S query tokens a
+    row.  Shapes alone decide, so the launch never reads lengths on the
+    host (a CUDA graph can capture it).  The blocks counted are
+    (row, kv head, split) times the stack's row tiles, ceil(S / 8) at
+    the least; a split past a row's last key costs a block that exits
+    at once."""
+    least = max(1, -(-PAGED_SPLIT_KEYS // page))
+    most = max(1, n_pages // least)
+    blocks = b * kh * -(-s // PAGED_WIDEST_TILE)
+    want = -(-PAGED_WAVES * PAGED_BLOCKS_PER_SM * sms // blocks)
+    pps = -(-n_pages // max(1, min(want, most)))
+    return pps, -(-n_pages // pps)
+
+
 def paged_fwd_cuda(q, k_pool, v_pool, tables, lengths, k_scales=None,
                    v_scales=None):
     """Launch K5.  q: (B, S, H, D) CUDA f32 or bf16 view with the last
@@ -131,8 +162,11 @@ def paged_fwd_cuda(q, k_pool, v_pool, tables, lengths, k_scales=None,
     (B,) int32.  Returns a new (B, S, H, D) tensor in q's dtype.
 
     Replaces libsplinter_tpu/ops/paged_attention.py `_paged_kernel`;
-    bound on an H100 by the bytes of each row's visible K/V pages (see
-    the source's header for the design)."""
+    bound on an H100 by the bytes of each row's visible K/V pages.
+    Split-K over table pages (``_paged_plan``); with more than one split
+    the (m, l, acc) scratch is allocated here and a combine kernel
+    merges it (see the source's header for the design).  Reads nothing
+    back from the device."""
     tensors = [q, k_pool, v_pool, tables, lengths]
     quant = k_scales is not None
     if quant:
@@ -176,18 +210,32 @@ def paged_fwd_cuda(q, k_pool, v_pool, tables, lengths, k_scales=None,
                                  f"{sc.dtype} (f32 (n_blocks, KH))")
         k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()
     tables, lengths = tables.contiguous(), lengths.contiguous()
+    n_pages = tables.shape[1]
+    pps, splits = _paged_plan(
+        b, kh, n_pages, page, s,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    part_ml = part_acc = None
+    if splits > 1:
+        rows = s * (h // kh)
+        part_ml = torch.empty((b, kh, rows, splits, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((b, kh, rows, splits, d),
+                               dtype=torch.float32, device=q.device)
     _cuda.launch("paged_fwd", "sptk_paged_fwd",
                  q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  k_scales.data_ptr() if quant else None,
                  v_scales.data_ptr() if quant else None,
                  tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 b, s, h, kh, d, page, tables.shape[1],
+                 part_ml.data_ptr() if splits > 1 else None,
+                 part_acc.data_ptr() if splits > 1 else None,
+                 b, s, h, kh, d, page, n_pages, pps,
                  int(q.dtype == torch.bfloat16), kind,
                  q.stride(0), q.stride(1), q.stride(2),
                  out.stride(0), out.stride(1), out.stride(2),
                  1.0 / math.sqrt(d), _cuda.stream_handle(q.device))
     LAUNCHES_BY_QTOKENS[s] += 1
+    LAUNCHES_BY_SPLITS[splits] += 1
     return out
 
 

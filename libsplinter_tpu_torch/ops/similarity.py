@@ -3,7 +3,8 @@
 Two hand-written CUDA kernels carry the search lane on the card:
 
   K3  cosine_scores_cuda (csrc/cosine_scores.cu): the (N, Q) cosine
-      score matrix with in-kernel row norms, plain f32 FMA;
+      score matrix with in-kernel row norms, plain f32 FMA, on K2's
+      score tile (csrc/topk_tile.cuh);
   K2  fused_topk_cuda (csrc/fused_topk.cu): score + streaming top-k in
       one pass over the lane, only O(k * Q) leaves the kernel.
 
@@ -26,6 +27,7 @@ import torch
 
 from ..obs.devtime import DEVTIME, close_mark
 from . import _cuda
+from ._cuda import H100_SMS
 
 NEG_INF = -1e30
 
@@ -35,9 +37,7 @@ NEG_INF = -1e30
 # its third step.
 FUSED_K_MAX = 128
 
-# query tile widths K3 is compiled for
-QUERY_TILES = (8, 32, 64, 128, 256)
-# K2 (csrc/topk_tile.cuh TileShape): query tile -> rows per tile,
+# K2 and K3 (csrc/topk_tile.cuh TileShape): query tile -> rows per tile,
 # queries per thread, depth of a staged chunk.  The narrow tiles
 # stream the lane; the wide one is an f32 GEMM.
 TOPK_TILES = {8: (256, 8, 64), 32: (256, 8, 32), 256: (128, 16, 32)}
@@ -45,13 +45,6 @@ TOPK_TILES = {8: (256, 8, 64), 32: (256, 8, 32), 256: (128, 16, 32)}
 TOPK_SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 _TOPK_STAGES, _TOPK_CAP = 2, 32      # ring stages, survivors per query
-H100_SMS = 132
-
-
-def _query_tile(nq: int) -> int:
-    """Smallest compiled query tile holding nq queries (the widest one
-    for more: the kernels loop over query tiles)."""
-    return next((t for t in QUERY_TILES if t >= nq), QUERY_TILES[-1])
 
 
 def _as_f32(x, device) -> torch.Tensor:
@@ -120,19 +113,26 @@ def cosine_scores_cuda(vectors, queries, mask=None, *,
     """Launch K3: (N, D) x (Q, D) CUDA f32 -> (N, Q) f32 cosine scores.
 
     Replaces libsplinter_tpu/ops/similarity.py `_scores_kernel`; bound
-    on an H100 by the lane read (N * D * 4 bytes over 3.35 TB/s) for
-    small Q, by f32 FMA (2 * N * D * Q FLOPs over 67 TFLOP/s) for large
-    Q.  Row norms come from the staged tile in-kernel."""
+    on an H100 by the lane read and the scores written (N * D * 4 and
+    N * Q * 4 bytes over 3.35 TB/s) for small Q, by f32 FMA
+    (2 * N * D * Q FLOPs over 67 TFLOP/s) for Q = 256.  K2's score tile
+    and grid (``_topk_plan``), row norms from the tile's registers, the
+    scores staged in shared memory and stored as whole rows (16-byte
+    stores when Q % 4 == 0).  Any d: rows that are not 16-byte aligned
+    load by 4-byte copies."""
     _check_lane(vectors, queries, mask, "cosine_scores_cuda")
     n, d = vectors.shape
     nq = queries.shape[0]
+    dev = vectors.device
+    tq, nblk = _topk_plan(
+        n, nq, torch.cuda.get_device_properties(dev).multi_processor_count)
     qnorm = torch.linalg.vector_norm(queries, dim=-1).contiguous()
-    out = torch.empty((n, nq), dtype=torch.float32, device=vectors.device)
+    out = torch.empty((n, nq), dtype=torch.float32, device=dev)
     _cuda.launch("cosine_scores", "sptk_cosine_scores",
                  vectors.data_ptr(), n, d, queries.data_ptr(), nq,
                  qnorm.data_ptr(), 0 if mask is None else mask.data_ptr(),
-                 out.data_ptr(), _query_tile(nq), int(mxu_bf16),
-                 _cuda.stream_handle(vectors.device))
+                 out.data_ptr(), tq, nblk, int(mxu_bf16),
+                 _cuda.stream_handle(dev))
     return out
 
 
@@ -189,9 +189,11 @@ def _topk_smem(tq: int) -> int:
 
 
 def _topk_plan(n: int, nq: int, sms: int = H100_SMS) -> tuple[int, int]:
-    """(query tile, partial blocks per tile) for the fused kernel: the
-    smallest tile holding nq queries (the widest for more), then as
-    many blocks over all query tiles as the SMs hold at once."""
+    """(query tile, blocks per query tile) for the fused kernel K2 and
+    for K3, which runs on K2's tile with the same residency (one block
+    an SM, two for the 32-query tile): the smallest tile holding nq
+    queries (the widest for more), then as many blocks over all query
+    tiles as the SMs hold at once."""
     tiles = sorted(TOPK_TILES)
     tq = next((t for t in tiles if t >= nq), tiles[-1])
     per_sm = max(1, SM_SMEM_BYTES // (_topk_smem(tq) + 1024))

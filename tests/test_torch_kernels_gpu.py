@@ -376,26 +376,55 @@ def _paged_inputs(rng, lengths, *, kh, d, page, n_pages, kind, dev):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("kind,s,h,kh,d,page", [
-    ("bf16", 1, 12, 12, 64, 16),       # decode, rep 1
-    ("f32", 1, 8, 4, 64, 16),          # GQA rep 2
-    ("bf16", 1, 6, 2, 128, 8),         # rep 3, D 128, many small pages
-    ("int8", 1, 8, 4, 64, 16),
-    ("int4", 1, 6, 2, 32, 16),
-    ("bf16", 5, 6, 2, 64, 16),         # the multi-query stack, rep 3
-    ("int4", 20, 4, 4, 64, 128),       # multi-query, one page per row
+def _paged_lengths(s, h, kh, page, pages):
+    """Ragged lengths and the table width.  pages = 0: short rows (one
+    split).  Otherwise rows over a table of `pages` pages, which K5's
+    plan cuts into several splits: a row ending exactly on a split
+    boundary, one a key past it, one a key short of two splits, a row
+    of one key, dead rows and one that fills the table."""
+    if not pages:
+        lengths = [1, page, 0, 3 * page + 5, 2 * page - 1, 0]
+        return lengths, -(-(max(lengths) + s) // page) + 1
+    from libsplinter_tpu_torch.ops.paged_attention import _paged_plan
+
+    pps, splits = _paged_plan(8, kh, pages, page, s)
+    assert splits > 1
+    sk = pps * page
+    return [1, sk, 0, pages * page - s + 1, 2 * sk - 1, 0, sk + 1,
+            (pages - 1) * page + 5], pages
+
+
+@pytest.mark.parametrize("kind,s,h,kh,d,page,pages", [
+    ("bf16", 1, 12, 12, 64, 16, 0),       # decode, rep 1
+    ("f32", 1, 8, 4, 64, 16, 0),          # GQA rep 2
+    ("bf16", 1, 6, 2, 128, 8, 0),         # rep 3, D 128, many small pages
+    ("int8", 1, 8, 4, 64, 16, 0),
+    ("int4", 1, 6, 2, 32, 16, 0),
+    ("bf16", 5, 6, 2, 64, 16, 0),         # the multi-query stack, rep 3
+    ("int4", 20, 4, 4, 64, 128, 0),       # multi-query, one page per row
+    # several splits a row
+    ("bf16", 1, 12, 12, 64, 128, 16),     # the lane's decode shape
+    ("f32", 1, 12, 12, 64, 128, 16),
+    ("int8", 1, 12, 4, 64, 128, 8),       # GQA rep 3
+    ("int4", 1, 12, 12, 64, 128, 16),
+    ("bf16", 1, 12, 1, 64, 16, 64),       # KH = 1 (rep 12), page 16
+    ("int8", 1, 12, 1, 32, 64, 32),       # rep 12, D 32, page 64
+    ("f32", 1, 8, 4, 128, 64, 16),        # D 128
+    ("int4", 1, 6, 2, 128, 16, 40),       # D 128
+    ("bf16", 3, 6, 2, 64, 16, 32),        # a stack crossing splits
+    ("bf16", 64, 12, 12, 64, 128, 16),    # the lane's suffix stack
 ])
-def test_paged_matches_plain(cuda, kind, s, h, kh, d, page):
+def test_paged_matches_plain(cuda, kind, s, h, kh, d, page, pages):
     """K5 against its plain version on the same pools: live rows within
     1e-5 (f32 and quantized pools, f32 queries) or the bf16 rounding
     bound (bf16), and the bf16 case again over the widened f32 pools
-    within 1e-5; dead rows (length 0, one query token) exactly 0."""
+    within 1e-5; dead rows (length 0, one query token) exactly 0.  The
+    cases with `pages` run several splits and the combine."""
     from libsplinter_tpu_torch.ops.paged_attention import (
         LAUNCHES_BY_QTOKENS, paged_attention, paged_attention_plain)
 
-    rng = np.random.default_rng(h * 31 + s + d + page)
-    lengths = [1, page, 0, 3 * page + 5, 2 * page - 1, 0]
-    n_pages = -(-(max(lengths) + s) // page) + 1
+    rng = np.random.default_rng(h * 31 + s + d + page + pages)
+    lengths, n_pages = _paged_lengths(s, h, kh, page, pages)
     (kp, vp), scales, tables, lens = _paged_inputs(
         rng, lengths, kh=kh, d=d, page=page, n_pages=n_pages, kind=kind,
         dev=cuda)
@@ -418,8 +447,8 @@ def test_paged_matches_plain(cuda, kind, s, h, kh, d, page):
     assert got.dtype == qdt and got.shape == q.shape
     g4 = got.float() if s > 1 else got.float()[:, None]
     r4 = ref.float() if s > 1 else ref.float()[:, None]
-    live = torch.ones(g4.shape[:2], dtype=torch.bool, device=cuda)
-    live[2, 0] = live[5, 0] = False                # length 0, token 0
+    live = (lens.long()[:, None]
+            + torch.arange(s, device=cuda)[None]) > 0   # sees a key
     if kind == "bf16":
         # one bf16 ulp of |ref| (the output's rounding) and 2^-8 of the
         # attention-weighted |V| (the probabilities' rounding before P.V)
@@ -436,6 +465,67 @@ def test_paged_matches_plain(cuda, kind, s, h, kh, d, page):
         w4 = wide if s > 1 else wide[:, None]
         torch.testing.assert_close(w4[live], r4[live], atol=1e-5, rtol=0)
         assert (w4[~live] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+def test_paged_all_dead_batch_is_zero(cuda, kind):
+    """Every row of length 0 over a table the plan splits: exact zeros
+    (the combine reads no split, and no scratch)."""
+    from libsplinter_tpu_torch.ops.paged_attention import (
+        _paged_plan, paged_attention)
+
+    rng = np.random.default_rng(5)
+    assert _paged_plan(4, 12, 16, 128, 1)[1] > 1
+    (kp, vp), scales, _, lens = _paged_inputs(
+        rng, [0, 0, 0, 0], kh=12, d=64, page=128, n_pages=16, kind=kind,
+        dev=cuda)
+    tables = torch.from_numpy(rng.integers(0, kp.shape[0], (4, 16))
+                              .astype(np.int32)).to(cuda)
+    q = torch.randn(4, 12, 64, device=cuda).to(
+        torch.bfloat16 if kind == "bf16" else torch.float32)
+    kw = {} if scales is None else {"k_scales": scales[0],
+                                    "v_scales": scales[1]}
+    got = paged_attention(q, kp, vp, tables, lens, **kw)
+    torch.cuda.synchronize()
+    assert (got == 0).all()
+
+
+def test_paged_replays_under_cuda_graph(cuda):
+    """The wrapper never reads the device on the host: K5 (several
+    splits and the combine) records under torch.cuda.graph capture, a
+    replay equals the eager output, and a replay after new lengths and
+    queries are copied in equals the eager output on them."""
+    from libsplinter_tpu_torch.ops.paged_attention import (
+        _paged_plan, paged_attention)
+
+    rng = np.random.default_rng(6)
+    assert _paged_plan(8, 12, 16, 128, 1)[1] > 1
+    lengths = [int(x) for x in rng.integers(1, 2048, 8)]
+    (kp, vp), _, tables, lens = _paged_inputs(
+        rng, [2047] * 8, kh=12, d=64, page=128, n_pages=16, kind="bf16",
+        dev=cuda)
+    lens.copy_(torch.tensor(lengths, dtype=torch.int32))
+    q = torch.randn(8, 12, 64, device=cuda).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm up off the capture
+        paged_attention(q, kp, vp, tables, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _cuda.LAUNCHES["paged_fwd"]
+    with torch.cuda.graph(graph):
+        out = paged_attention(q, kp, vp, tables, lens)
+    assert _cuda.LAUNCHES["paged_fwd"] == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, paged_attention(q, kp, vp, tables, lens))
+    lens.copy_(torch.tensor([0, 5, 128, 129, 2047, 1, 1000, 256],
+                            dtype=torch.int32))
+    q.copy_(torch.randn(8, 12, 64, device=cuda).to(torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, paged_attention(q, kp, vp, tables, lens))
+    assert (out[0] == 0).all()
 
 
 def test_paged_takes_strided_query_views(cuda):
@@ -460,14 +550,15 @@ def _lane(rng, n, d, dev):
     return torch.from_numpy(x).to(dev)
 
 
-@pytest.mark.parametrize("nq", [1, 8, 20, 64, 200, 300])
+@pytest.mark.parametrize("nq", [1, 8, 20, 64, 200, 256, 300])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_cosine_scores_match_plain(cuda, nq, bf16):
+@pytest.mark.parametrize("d", [100, 99, 3])     # 4-byte copies at d % 4
+def test_cosine_scores_match_plain(cuda, nq, bf16, d):
     rng = np.random.default_rng(nq)
-    vec = torch.from_numpy(rng.standard_normal((5000, 100))
+    vec = torch.from_numpy(rng.standard_normal((5000, d))
                            .astype(np.float32)).to(cuda)
     vec[17] = 0.0                               # an un-embedded slot
-    qry = torch.from_numpy(rng.standard_normal((nq, 100))
+    qry = torch.from_numpy(rng.standard_normal((nq, d))
                            .astype(np.float32)).to(cuda)
     mask = torch.from_numpy((rng.random(5000) > 0.2)
                             .astype(np.float32)).to(cuda)
