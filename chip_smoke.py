@@ -1,6 +1,7 @@
 """Drive the torch port's embed -> vector-commit -> search path, its
-dense completion lane, its continuous (block-paged) completion lane and
-the encoder's contrastive trainer on one NVIDIA GPU, with every CUDA
+dense completion lane, its continuous (block-paged) completion lane,
+the encoder's contrastive trainer and GGUF checkpoints opened cold by
+the embedder and the completer on one NVIDIA GPU, with every CUDA
 kernel held against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
@@ -75,11 +76,26 @@ Phases (any failure exits non-zero and prints no result line):
      loss within 1e-6 relative of the uninterrupted one's; the trained
      weights served through EmbeddingModel against the trainer's own
      forward;
-  8. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+  8. gguf: the committed golden fixture (tests/fixtures/) opened cold
+     in f32 (TF32 off): config and token ids exact, vectors within
+     1e-5 of golden_expected.json, directly and committed by an
+     in-process Embedder; embedder.main on the file alone (bf16,
+     cosine >= 0.999).  Then EncoderConfig() from seeded weights
+     written as an F16 GGUF with a 30528-entry WordPiece vocab and
+     DecoderConfig() as F16 with layer 0's attention in Q8_0 and its
+     MLP in Q4_0, a 32000-piece unigram vocab and a chatml template,
+     each opened cold with every tensor bit-exact (the f16 rounding or
+     the numpy dequantizer's output); the encoder serves 64 texts
+     (K1 on buckets 512 and 1024) and a k=16 search (K2), and
+     completer.main --weights <file> --continuous --template auto
+     resolves chatml and serves 8 requests (K4, K5) with no abort.
+     Write and cold-load seconds and each lane's rate are printed;
+  9. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
      (K5, by query tokens and by splits: a launch of more than one
-     split runs the combine kernel too) and 7 (K6), each counted from 0
-     just before its path runs.
+     split runs the combine kernel too), 7 (K6) and 8 (K1, K2, K4, K5
+     from GGUF weights, added to the sums), each counted from 0 just
+     before its path runs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1938,6 +1954,513 @@ def phase_train(card, timings):
     return counts
 
 
+# -- phase 8: GGUF checkpoints, opened cold ----------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+GGUF_NEW_TOKENS = 32
+CHATML_TEMPLATE = ("{% for m in messages %}<|im_start|>{{ m.role }}\n"
+                   "{{ m.content }}<|im_end|>\n{% endfor %}"
+                   "<|im_start|>assistant\n")
+
+
+def _gguf_golden(card, timings):
+    """The committed golden fixture, cold, on the card: its config and
+    token ids exact, its f32 vectors (TF32 off) within 1e-5 of
+    golden_expected.json, directly and committed by an in-process
+    Embedder (f32 fetch wire); then embedder.main on the file alone
+    (bf16, as the daemon derives it: cosine >= 0.999)."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import embedder as emb_mod
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.models import (EmbeddingModel, GgufFile,
+                                              encoder_config_from_gguf,
+                                              load_tokenizer)
+
+    path = os.path.join(FIXTURES, "golden_encoder.gguf")
+    with open(os.path.join(FIXTURES, "golden_expected.json")) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    with GgufFile(path) as gf:
+        cfg = encoder_config_from_gguf(gf, out_dim=32, dtype=torch.float32)
+        tok = load_tokenizer(gf)
+    model = EmbeddingModel(cfg, weights=path, buckets=(32,), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = golden["config"]
+    check((cfg.vocab_size, cfg.hidden, cfg.layers, cfg.out_dim, cfg.variant)
+          == (want["vocab_size"], want["hidden"], want["layers"],
+              want["out_dim"], "nomic"), f"golden config {cfg}")
+    worst = 0.0
+    texts, vecs = {}, {}
+    for i, case in enumerate(golden["texts"]):
+        ids = tok.encode(case["text"])
+        check(ids == case["token_ids"],
+              f"golden token ids of {case['text']!r}: {ids}")
+        arr = np.full((1, 32), tok.pad_id, np.int32)
+        arr[0, :len(ids)] = ids
+        vec = model.encode_ids(arr, np.array([len(ids)], np.int32))[0]
+        vecs[f"g/{i}"] = np.asarray(case["vector"], np.float32)
+        texts[f"g/{i}"] = case["text"]
+        worst = max(worst, float(np.abs(vec - vecs[f"g/{i}"]).max()))
+    check(worst <= F32_ATOL, f"golden vectors: worst abs err {worst}")
+
+    names = [f"/spt-smoke-g{os.getpid()}{s}" for s in "ab"]
+    stores = []
+    try:
+        for name in names:
+            stores.append(Store.create(name, nslots=64, max_val=1024,
+                                       vec_dim=32))
+            _requeue(stores[-1], P, texts)
+        emb = emb_mod.Embedder(stores[0], model=model, tokenizer=tok,
+                               max_ctx=cfg.max_len)
+        emb.attach()
+        check(emb.run_once() == len(texts), "golden: embedder drain")
+        lane_err = max(float(np.abs(stores[0].vec_get(k) - v).max())
+                       for k, v in vecs.items())
+        check(lane_err <= F32_ATOL,
+              f"golden: committed vectors, worst abs err {lane_err}")
+        t0 = time.perf_counter()
+        check(emb_mod.main(["--store", names[1], "--weights", path,
+                            "--oneshot"]) == 0, "golden: embedder.main")
+        main_s = time.perf_counter() - t0
+        cos = min(float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w)))
+                  for k, w in vecs.items() for g in [stores[1].vec_get(k)])
+        check(cos >= 0.999, f"golden: embedder.main (bf16) cosine {cos}")
+    finally:
+        for st, name in zip(stores, names):
+            st.close()
+            Store.unlink(name)
+    log(f"gguf golden: cold load {load_s:.3f}s, f32 vectors worst abs err "
+        f"{worst:.3g} (bar 1e-5), committed through the Embedder "
+        f"{lane_err:.3g}; embedder.main on the file (bf16) min cosine "
+        f"{cos:.6f} in {main_s:.2f}s [{card}]")
+    timings["gguf_golden"] = {"load_s": load_s, "max_abs_err": worst,
+                              "embedder_max_abs_err": lane_err,
+                              "main_min_cosine": cos, "main_s": main_s}
+
+
+def _wordpiece_vocab(n, rng):
+    """A WordPiece vocab of n entries: the five bert specials, seeded
+    words and ##pieces."""
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    seen, words = set(vocab), []
+    while len(vocab) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        if rng.random() < 0.3:
+            w = "##" + w
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+            if not w.startswith("##"):
+                words.append(w)
+    return vocab, words
+
+
+def _nest(flat):
+    """params_to_jax's flat "params/a/b/leaf" keys -> a nested tree."""
+    tree = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split("/")[1:]
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return tree
+
+
+def _gguf_encoder(card, timings, tmp):
+    """EncoderConfig() from seeded weights written as an F16 GGUF with a
+    30528-entry WordPiece vocab, opened cold: every loaded tensor equal
+    to the f16 rounding of its source; the embed lane over 64 texts
+    (K1 in the bucket-1024 ones) and a k = 16 search (K2)."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.embedder import Embedder
+    from libsplinter_tpu_torch.engine.searcher import (Searcher,
+                                                       consume_result,
+                                                       submit_search)
+    from libsplinter_tpu_torch.models import (EmbeddingModel, EncoderConfig,
+                                              GgufFile,
+                                              encoder_config_from_gguf,
+                                              load_encoder_params,
+                                              load_tokenizer)
+    from libsplinter_tpu_torch.models.encoder import (Encoder, init_params,
+                                                      params_to_jax)
+    from libsplinter_tpu_torch.models.gguf_writer import (GGML_F16,
+                                                          export_encoder_gguf)
+    from libsplinter_tpu_torch.ops import _cuda
+
+    cfg = EncoderConfig()
+    rng = np.random.default_rng(31)
+    with torch.device("cuda"):
+        src = Encoder(cfg)
+    init_params(src, torch.Generator(device="cuda").manual_seed(31))
+    tree = _nest(params_to_jax(src))
+    want = {k: v.float().cpu().half().float()
+            for k, v in src.state_dict().items()}
+    del src
+    vocab, words = _wordpiece_vocab(cfg.vocab_size, rng)
+    path = os.path.join(tmp, "encoder-f16.gguf")
+    t0 = time.perf_counter()
+    export_encoder_gguf(tree, cfg, path, tokenizer_vocab=vocab,
+                        gtype=GGML_F16)
+    write_s = time.perf_counter() - t0
+    del tree
+
+    t0 = time.perf_counter()
+    with GgufFile(path) as gf:
+        lcfg = encoder_config_from_gguf(gf, out_dim=LANE_DIM)
+        tok = load_tokenizer(gf)
+    sd = load_encoder_params(path, lcfg)
+    model = EmbeddingModel(lcfg, params=sd, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fields = ("vocab_size", "hidden", "layers", "heads", "mlp_dim",
+              "max_len", "variant", "out_dim", "dtype")
+    check(all(getattr(lcfg, f) == getattr(cfg, f) for f in fields),
+          f"encoder config from the file {lcfg} != {cfg}")
+    check(sorted(sd) == sorted(want), "encoder: state_dict keys")
+    bad = [k for k in want if not torch.equal(sd[k], want[k])]
+    check(not bad, f"encoder: {len(bad)} tensors differ from the f16 "
+          f"rounding of their source, e.g. {bad[:3]}")
+    del sd, want
+    log(f"gguf encoder: EncoderConfig() as F16 ({os.path.getsize(path)} "
+        f"bytes, vocab {len(vocab)}) written in {write_s:.2f}s, cold load "
+        f"(open, config, tokenizer, dequantize, to the card) {load_s:.2f}s; "
+        f"every tensor equal to the f16 rounding of its source [{card}]")
+
+    name = f"/spt-smoke-ge{os.getpid()}"
+    st = searcher = None
+    stop = threading.Event()
+    try:
+        st = Store.create(name, nslots=4096, max_val=8192, vec_dim=LANE_DIM)
+        emb = Embedder(st, model=model, tokenizer=tok, max_ctx=lcfg.max_len)
+        emb.attach()
+        spans = [(600, 900)] * 2 + [(300, 500)] * 6 + [(8, 200)] * 56
+        texts = {f"gguf/{i:02d}": " ".join(rng.choice(words,
+                                                       int(rng.integers(*s))))
+                 for i, s in enumerate(spans)}
+        _requeue(st, P, texts)
+        _cuda.LAUNCHES.reset()                       # this slice's path
+        t0 = time.perf_counter()
+        n = emb.run_once()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        check(n == len(texts), f"gguf encoder: embedded {n} of {len(texts)}")
+        for key in texts:
+            v = st.vec_get(key)
+            check(np.isfinite(v).all() and
+                  abs(float(np.linalg.norm(v)) - 1.0) < 1e-4,
+                  f"gguf encoder {key}: norm {np.linalg.norm(v)}")
+
+        searcher = Searcher(st, device="cuda")
+        searcher.attach()
+
+        def drain_loop():
+            while not stop.is_set():
+                searcher.run_once()
+                time.sleep(0.002)
+
+        drainer = threading.Thread(target=drain_loop, daemon=True)
+        drainer.start()
+        src_key = "gguf/00"
+        st.set("__q/gguf", "q")
+        st.vec_set("__q/gguf", st.vec_get(src_key))
+        rec = submit_search(st, "__q/gguf", 16, timeout_ms=300_000)
+        stop.set()
+        drainer.join(timeout=60)
+        check(not drainer.is_alive(), "searcher thread did not stop")
+        check(rec is not None and "err" not in rec and len(rec["keys"]) == 16
+              and rec["keys"][0] == src_key,
+              f"gguf encoder: k=16 search for {src_key}: {rec}")
+        consume_result(st, "__q/gguf")
+        counts = dict(_cuda.LAUNCHES)
+        check(counts["flash_fwd"] > 0 and counts["fused_topk"] > 0,
+              f"gguf encoder lane: K1/K2 never launched: {counts}")
+        log(f"gguf encoder lane: {n} texts in {drain_s:.3f}s = "
+            f"{n / drain_s:.1f} embeddings/s (cold, buckets "
+            f"{sorted(model._shapes)}), k=16 search returns the key "
+            f"itself first; K1 launches {counts['flash_fwd']}, K2 "
+            f"{counts['fused_topk']} [{card}] (first reading)")
+        timings["gguf_encoder"] = {
+            "write_s": write_s, "load_s": load_s,
+            "file_bytes": os.path.getsize(path), "requests": n,
+            "drain_s": drain_s, "embeddings_per_s": n / drain_s}
+        return {k: counts[k] for k in ("flash_fwd", "fused_topk")}
+    finally:
+        stop.set()
+        if st is not None:
+            st.close()
+            Store.unlink(name)
+        del model
+        torch.cuda.empty_cache()
+
+
+def _unigram_vocab(n, rng):
+    """A llama (unigram) vocab of n pieces: <unk> <s> </s>, the byte
+    pieces <0x00>-<0xFF>, the chatml markers as user-defined tokens,
+    then seeded pieces with seeded scores; also the words that are
+    whole "▁" pieces."""
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    tokens += ["<|im_start|>", "<|im_end|>"]
+    types = [2, 3, 3] + [6] * 256 + [4, 4]        # ggml token types
+    scores = [0.0] * len(tokens)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    seen, words = set(tokens), []
+    while len(tokens) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(1, 8))))
+        piece = "▁" + w if rng.random() < 0.6 else w
+        if piece in seen:
+            continue
+        seen.add(piece)
+        tokens.append(piece)
+        types.append(1)
+        scores.append(-len(piece) ** 0.5 - float(rng.random()))
+        if piece.startswith("▁"):
+            words.append(w)
+    return tokens, scores, types, words
+
+
+def _gguf_decoder_file(cfg, tmp, rng):
+    """DecoderConfig() from seeded weights as a llama GGUF: F16, with
+    layer 0's attention in Q8_0 and its MLP in Q4_0, a 32000-piece
+    unigram vocab and a chatml chat template.  Returns (path, write
+    seconds, the expected loaded state_dict, the vocab)."""
+    import torch
+
+    from libsplinter_tpu_torch.models import gguf
+    from libsplinter_tpu_torch.models.decoder import Decoder, init_params
+    from libsplinter_tpu_torch.models.gguf_writer import (
+        GGML_F16, GGML_Q4_0, GGML_Q8_0, kv_f32_array, kv_i32_array, kv_str,
+        kv_str_array, kv_u32, quantize_q4_0, quantize_q8_0, write_gguf)
+
+    with torch.device("cuda"):
+        src = Decoder(cfg)
+    init_params(src, torch.Generator(device="cuda").manual_seed(37))
+    state = {k: v.float().cpu().numpy() for k, v in src.state_dict().items()}
+    del src
+    top = {"tok_emb.weight": "token_embd.weight",
+           "ln_out.weight": "output_norm.weight",
+           "lm_head.weight": "output.weight"}
+    per_layer = {"ln_attn": "attn_norm", "ln_mlp": "ffn_norm",
+                 "attn.q": "attn_q", "attn.k": "attn_k", "attn.v": "attn_v",
+                 "attn.out": "attn_output", "gate": "ffn_gate",
+                 "up": "ffn_up", "down": "ffn_down"}
+    quant = {"layer_0.attn.q.weight": GGML_Q8_0,
+             "layer_0.attn.k.weight": GGML_Q8_0,
+             "layer_0.attn.v.weight": GGML_Q8_0,
+             "layer_0.attn.out.weight": GGML_Q8_0,
+             "layer_0.gate.weight": GGML_Q4_0,
+             "layer_0.up.weight": GGML_Q4_0,
+             "layer_0.down.weight": GGML_Q4_0}
+    tensors, expect = {}, {}
+    for key, arr in state.items():
+        if key in top:
+            gname = top[key]
+        else:
+            layer, rest = key.split(".", 1)
+            gname = (f"blk.{layer.split('_')[1]}."
+                     f"{per_layer[rest.removesuffix('.weight')]}.weight")
+        gtype = quant.get(key, GGML_F16)
+        tensors[gname] = (arr, gtype)
+        if gtype == GGML_F16:
+            want = arr.astype(np.float16).astype(np.float32)
+        else:
+            quantize, dequant = {GGML_Q8_0: (quantize_q8_0, gguf._dequant_q8_0),
+                                 GGML_Q4_0: (quantize_q4_0, gguf._dequant_q4_0)
+                                 }[gtype]
+            want = dequant(quantize(arr.reshape(-1)), 0,
+                           arr.size).reshape(arr.shape)
+        expect[key] = torch.from_numpy(want)
+    tokens, scores, types, words = _unigram_vocab(cfg.vocab_size, rng)
+    md = [kv_str("general.architecture", "llama"),
+          kv_u32("llama.block_count", cfg.layers),
+          kv_u32("llama.embedding_length", cfg.hidden),
+          kv_u32("llama.attention.head_count", cfg.heads),
+          kv_u32("llama.attention.head_count_kv", cfg.kv_heads),
+          kv_u32("llama.feed_forward_length", cfg.mlp_dim),
+          kv_u32("llama.context_length", cfg.max_len),
+          kv_str("tokenizer.ggml.model", "llama"),
+          kv_str_array("tokenizer.ggml.tokens", tokens),
+          kv_f32_array("tokenizer.ggml.scores", scores),
+          kv_i32_array("tokenizer.ggml.token_type", types),
+          kv_u32("tokenizer.ggml.bos_token_id", 1),
+          kv_u32("tokenizer.ggml.eos_token_id", 2),
+          kv_u32("tokenizer.ggml.unknown_token_id", 0),
+          kv_str("tokenizer.chat_template", CHATML_TEMPLATE)]
+    path = os.path.join(tmp, "decoder-f16-q8-q4.gguf")
+    t0 = time.perf_counter()
+    write_gguf(path, tensors, md)
+    return path, time.perf_counter() - t0, expect, words
+
+
+def _gguf_decoder(card, timings, tmp):
+    """DecoderConfig() as a GGUF opened cold (every loaded tensor equal
+    to its source's f16 rounding or, for the Q8_0 and Q4_0 ones, to the
+    numpy dequantizer's output), then completer.main on the file alone
+    with --continuous --template auto: chatml from the file, 8 requests
+    served on the card with K4 and K5."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import completer as comp_mod
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.models import (CompletionModel, DecoderConfig,
+                                              GgufFile,
+                                              decoder_config_from_gguf,
+                                              load_decoder_params,
+                                              load_tokenizer)
+    from libsplinter_tpu_torch.ops import _cuda
+
+    cfg = DecoderConfig()
+    rng = np.random.default_rng(37)
+    path, write_s, expect, words = _gguf_decoder_file(cfg, tmp, rng)
+    t0 = time.perf_counter()
+    with GgufFile(path) as gf:
+        lcfg = decoder_config_from_gguf(gf)
+        tok = load_tokenizer(gf)
+    sd = load_decoder_params(path, lcfg)
+    model = CompletionModel(lcfg, params=sd, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(lcfg == cfg, f"decoder config from the file {lcfg} != {cfg}")
+    check(sorted(sd) == sorted(expect), "decoder: state_dict keys")
+    bad = [k for k in expect if not torch.equal(sd[k], expect[k])]
+    check(not bad, f"decoder: {len(bad)} tensors differ from their "
+          f"source's dequantized value, e.g. {bad[:3]}")
+    del model, sd, expect
+    torch.cuda.empty_cache()
+    log(f"gguf decoder: DecoderConfig() as F16 + layer 0 Q8_0/Q4_0 "
+        f"({os.path.getsize(path)} bytes, vocab {tok.vocab_size}) written "
+        f"in {write_s:.2f}s, cold load (open, config, tokenizer, "
+        f"dequantize, to the card) {load_s:.2f}s; every tensor equal to "
+        f"its source's dequantized value [{card}]")
+
+    def text(nwords):
+        return " ".join(rng.choice(words, nwords))
+
+    prompts = {f"chat/{i}": text(n)
+               for i, n in enumerate((30, 90, 160, 240, 320, 400, 520, 640))}
+    base = comp_mod.Completer
+    made = []
+
+    class Recording(base):
+        """The daemon's Completer, kept for the checks below, with each
+        request's streamed token count."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.n_tok = {}
+            made.append(self)
+
+        def _finalize(self, key, t0, n_tok, *a, **kw):
+            self.n_tok[key] = n_tok
+            return super()._finalize(key, t0, n_tok, *a, **kw)
+
+    name = f"/spt-smoke-gd{os.getpid()}"
+    st = Store.create(name, nslots=128, max_val=16384, vec_dim=0)
+    done, finished = {}, threading.Event()
+
+    def feeder():
+        deadline = time.monotonic() + 600
+        while not made:                 # main builds the lane's Completer
+            if finished.wait(0.01) or time.monotonic() > deadline:
+                return
+        t1 = time.perf_counter()
+        _ask(st, P, prompts)
+        busy = P.LBL_INFER_REQ | P.LBL_WAITING | P.LBL_SERVICING
+        while time.monotonic() < deadline:
+            if all(st.labels(k) & P.LBL_READY and not st.labels(k) & busy
+                   for k in prompts):
+                done["wall"] = time.perf_counter() - t1
+                break
+            time.sleep(0.01)
+        while not finished.is_set():      # stop the lane once it runs
+            made[0].stop()
+            finished.wait(0.5)
+
+    th = threading.Thread(target=feeder, daemon=True)
+    try:
+        _cuda.LAUNCHES.reset()                       # this slice's path
+        comp_mod.Completer = Recording
+        th.start()
+        t0 = time.perf_counter()
+        rc = comp_mod.main(["--store", name, "--weights", path,
+                            "--continuous", "--template", "auto",
+                            "--max-new-tokens", str(GGUF_NEW_TOKENS),
+                            "--idle-timeout-ms", "20"])
+        main_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+    finally:
+        comp_mod.Completer = base
+        finished.set()
+        th.join(timeout=60)
+        served = {k: (st.labels(k), st.get(k).rstrip(b"\0")) for k in prompts}
+        st.close()
+        Store.unlink(name)
+    check(rc == 0 and made and "wall" in done,
+          f"completer.main on the GGUF: rc {rc}, {len(made)} lanes, "
+          f"served {made[0].stats.completions if made else 0} of "
+          f"{len(prompts)}")
+    comp = made[0]
+    check(comp.template == "chatml",
+          f"--template auto resolved to {comp.template!r}, not chatml")
+    check(comp.stats.aborts == 0 and comp.stats.faults == 0,
+          f"gguf lane: {comp.stats.aborts} aborts, {comp.stats.faults} "
+          f"key faults")
+    check(comp.stats.completions == len(prompts),
+          f"gguf lane: {comp.stats.completions} completions")
+    for key, user in prompts.items():
+        labels, got = served[key]
+        check(labels & P.LBL_READY and not labels & (
+            P.LBL_SERVICING | P.LBL_INFER_REQ | P.LBL_WAITING),
+            f"{key}: labels {labels:#x}")
+        rendered = comp_mod.render_prompt(user, None, "chatml").encode()
+        check(got.startswith(rendered), f"{key}: chatml prompt not kept")
+        check(1 <= comp.n_tok.get(key, 0) <= GGUF_NEW_TOKENS,
+              f"{key}: {comp.n_tok.get(key)} tokens streamed")
+        piece = got[len(rendered):].decode("utf-8", errors="replace")
+        tok.decode(tok.encode(piece, add_bos=False))
+    check(counts["causal_fwd"] > 0 and counts["paged_fwd"] > 0,
+          f"gguf lane: K4/K5 never launched: {counts}")
+    tokens = comp.stats.tokens
+    log(f"gguf decoder lane: completer.main --weights <file> --continuous "
+        f"--template auto -> chatml; {len(prompts)} requests, {tokens} "
+        f"tokens in {done['wall']:.3f}s = {tokens / done['wall']:.1f} "
+        f"tokens/s (cold, prefill included; main {main_s:.2f}s with its "
+        f"own load); K4 launches {counts['causal_fwd']}, K5 "
+        f"{counts['paged_fwd']} [{card}] (first reading)")
+    timings["gguf_decoder"] = {
+        "write_s": write_s, "load_s": load_s,
+        "file_bytes": os.path.getsize(path), "requests": len(prompts),
+        "tokens": tokens, "wall_s": done["wall"],
+        "tokens_per_s": tokens / done["wall"], "main_s": main_s}
+    return {k: counts[k] for k in ("causal_fwd", "paged_fwd")}
+
+
+def phase_gguf(card, timings):
+    """GGUF checkpoints opened cold by the port on the card: the golden
+    fixture, then full-width encoder and decoder files written here."""
+    t0 = time.perf_counter()
+    _gguf_golden(card, timings)
+    tmp = tempfile.mkdtemp(prefix="spt-smoke-gguf-")
+    try:
+        counts = _gguf_encoder(card, timings, tmp)
+        counts.update(_gguf_decoder(card, timings, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    timings["gguf_s"] = time.perf_counter() - t0
+    log(f"gguf phase: {timings['gguf_s']:.1f}s [{card}]")
+    return counts
+
+
 def _lane_slots(requested: int) -> int:
     """The requested slot count, cut to 262,144 when the temp dir
     cannot hold the file-backed store (~11.5 KB per slot mapped)."""
@@ -1991,6 +2514,12 @@ def main() -> int:
         counts["causal_fwd"] = sum(k4.values())
         timings["causal_fwd_launches"] = k4
         counts["flash_bwd"] = phase_train(card, timings)["flash_bwd"]
+        # K1, K2, K4 and K5 again from GGUF-loaded weights, counted from
+        # 0 before each of this phase's paths: the record carries sums
+        gguf = phase_gguf(card, timings)
+        for k, v in gguf.items():
+            counts[k] += v
+        timings["gguf_launches"] = gguf
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -34,10 +34,12 @@ PagedKVCache, a radix prefix cache (engine/prefix_cache.py) maps shared
 prompt pages instead of re-prefilling them, and every decode step and
 suffix prefill attends through kernel K5.  The label protocol, flush
 cadence, truncation, ctime backfill and __debug lines are the JAX
-daemon's, so torch and JAX daemons share one store.  Not ported yet:
-the KV tier, the disaggregated prefill/decode lanes, GGUF checkpoints,
-quantized weights, speculative decoding and sharded serving — ``main``
-refuses their flags instead of serving another way.
+daemon's, so torch and JAX daemons share one store.  ``main`` serves a
+.gguf checkpoint from the file alone (geometry, tokenizer, chat
+template, weights).  Not ported yet: the KV tier, the disaggregated
+prefill/decode lanes, quantized weights, speculative decoding and
+sharded serving — ``main`` refuses their flags instead of serving
+another way.
 """
 from __future__ import annotations
 
@@ -1642,12 +1644,6 @@ def _refuse_not_ported(args) -> None:
                 f"{flag} is not yet ported to the torch package (ROADMAP "
                 f"{where}); the JAX daemon, python -m "
                 "libsplinter_tpu.engine.completer, serves it")
-    if args.weights and args.weights.endswith(".gguf"):
-        raise SystemExit(
-            "GGUF checkpoints are not yet ported to the torch package "
-            "(ROADMAP Queue A, GGUF loading: gguf.py "
-            "load_decoder_params); "
-            "convert to .safetensors")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1671,8 +1667,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--max-new-tokens", type=int, default=256)
     ap.add_argument("--template", default="auto",
                     help="chat template: chatml, llama2, llama3, or none "
-                         "(bare system\\n\\nprompt); auto means none "
-                         "until GGUF metadata can be read")
+                         "(bare system\\n\\nprompt); auto fingerprints "
+                         "a .gguf's tokenizer.chat_template, and is none "
+                         "without one")
     ap.add_argument("--temp", type=float, default=0.7)
     ap.add_argument("--top-p", type=float, default=0.9)
     ap.add_argument("--idle-timeout-ms", type=int, default=100)
@@ -1683,11 +1680,13 @@ def main(argv: list[str] | None = None) -> int:
                          "publishes replica-suffixed "
                          "(__completer_stats.rN)")
     ap.add_argument("--weights",
-                    help="decoder checkpoint: .safetensors (HF llama "
-                         "naming); .gguf is not yet ported")
+                    help="decoder checkpoint: .gguf (geometry, tokenizer "
+                         "and chat template all from the file) or "
+                         ".safetensors (HF llama naming; default "
+                         "geometry, byte-level tokenizer)")
     ap.add_argument("--n-ctx", type=int, default=None,
-                    help="context window / KV-cache length (default "
-                         "2048)")
+                    help="context window / KV-cache length (default: "
+                         "a .gguf's context length, else 2048)")
     ap.add_argument("--batch-cap", type=int, default=None,
                     help="serve up to this many waiting keys "
                          "concurrently (1 = serial, the reference's "
@@ -1762,25 +1761,40 @@ def main(argv: list[str] | None = None) -> int:
     _refuse_not_ported(args)
 
     logging.basicConfig(level=logging.INFO)
-    from ..models import CompletionModel, DecoderConfig
+    from ..models import (CompletionModel, DecoderConfig, GgufFile,
+                          decoder_config_from_gguf, load_tokenizer)
 
+    tokenizer = None
     template = args.template
+    if args.weights and args.weights.endswith(".gguf"):
+        overrides = {"max_len": args.n_ctx} if args.n_ctx else {}
+        with GgufFile(args.weights) as gf:   # parse the container once
+            cfg = decoder_config_from_gguf(gf, **overrides)
+            tokenizer = load_tokenizer(gf)
+            if template == "auto":
+                # fingerprint the checkpoint's embedded Jinja template
+                # (llama.cpp reads the same metadata for its pick)
+                template = detect_template(
+                    gf.metadata.get("tokenizer.chat_template"))
+                log.info("--template auto resolved to %r", template)
+    else:
+        cfg = DecoderConfig(max_len=args.n_ctx or 2048)
+        if args.weights:
+            log.warning(
+                "--weights %s has no tokenizer metadata; falling back to "
+                "the byte-level tokenizer, which will NOT match a real "
+                "checkpoint's vocabulary — use the model's .gguf export",
+                args.weights)
     if template == "auto":
         # no GGUF metadata to fingerprint: the reference's own fallback
         # when llama_chat_apply_template has no template is bare
         # system\n\nprompt concatenation
         template = "none"
         log.info("--template auto with no GGUF metadata: using 'none'")
-    if args.weights:
-        log.warning(
-            "--weights %s has no tokenizer metadata; falling back to "
-            "the byte-level tokenizer, which will NOT match a real "
-            "checkpoint's vocabulary", args.weights)
-    cfg = DecoderConfig(max_len=args.n_ctx or 2048)
     model = CompletionModel(cfg, weights=args.weights, top_p=args.top_p,
                             temp=args.temp, device=args.device)
     store = Store.open(args.store, persistent=args.persistent)
-    comp = Completer(store, model=model,
+    comp = Completer(store, model=model, tokenizer=tokenizer,
                      max_new_tokens=args.max_new_tokens,
                      template=template, batch_cap=args.batch_cap,
                      page_size=args.page_size, pool_pages=args.pool_pages,

@@ -1309,7 +1309,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="write-once vectors: never overwrite an existing "
                          "non-zero embedding")
     ap.add_argument("--max-ctx", type=int, default=None,
-                    help="context window override (default: 2048)")
+                    help="context window override (default: a .gguf's "
+                         "context length, else 2048)")
     ap.add_argument("--batch-cap", type=int, default=256,
                     help="rows per encode batch (padding bucket "
                          "grouping happens under this cap)")
@@ -1348,29 +1349,36 @@ def main(argv: list[str] | None = None) -> int:
                     help="run the (1, bucket) and (batch_cap, bucket) "
                          "encoder shapes once before serving")
     ap.add_argument("--weights",
-                    help="encoder checkpoint: .safetensors (HF naming); "
-                         ".gguf is not yet ported")
+                    help="encoder checkpoint: .gguf (geometry, tokenizer "
+                         "and weights all from the file) or .safetensors "
+                         "(HF naming; default geometry, hashed-vocab "
+                         "tokenizer)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    from ..models import EmbeddingModel, EncoderConfig
+    from ..models import (EmbeddingModel, EncoderConfig, GgufFile,
+                          encoder_config_from_gguf, load_tokenizer)
 
-    if args.weights and args.weights.endswith(".gguf"):
-        raise NotImplementedError(
-            "GGUF checkpoints are not yet ported to the torch package; "
-            "convert to .safetensors")
     store = Store.open(args.store, persistent=args.persistent)
-    max_ctx = args.max_ctx or 2048
-    cfg = EncoderConfig(out_dim=store.vec_dim, max_len=max_ctx)
-    if args.weights:
-        log.warning(
-            "--weights %s has no tokenizer metadata; falling back to "
-            "the hashed-vocab tokenizer, which will NOT match a real "
-            "checkpoint's vocabulary — wire a vocab.txt WordPiece "
-            "tokenizer in code", args.weights)
+    tokenizer = None
+    if args.weights and args.weights.endswith(".gguf"):
+        overrides = {"max_len": args.max_ctx} if args.max_ctx else {}
+        with GgufFile(args.weights) as gf:   # parse the container once
+            cfg = encoder_config_from_gguf(gf, out_dim=store.vec_dim,
+                                           **overrides)
+            tokenizer = load_tokenizer(gf)
+    else:
+        cfg = EncoderConfig(out_dim=store.vec_dim,
+                            max_len=args.max_ctx or 2048)
+        if args.weights:
+            log.warning(
+                "--weights %s has no tokenizer metadata; falling back to "
+                "the hashed-vocab tokenizer, which will NOT match a real "
+                "checkpoint's vocabulary — use the model's .gguf export",
+                args.weights)
     model = EmbeddingModel(cfg, weights=args.weights, device=args.device)
-    emb = Embedder(store, model=model,
-                   max_ctx=max_ctx,
+    emb = Embedder(store, model=model, tokenizer=tokenizer,
+                   max_ctx=cfg.max_len,
                    batch_cap=args.batch_cap,
                    ring_depth=args.ring_depth,
                    inflight_depth=args.inflight_depth,

@@ -27,9 +27,10 @@ prefix-cache suffix prefill reads in place through kernel K5
 by the appends, the commit scatter and the copy-on-write copy, where
 the JAX package donates them to each program.
 
-Weights load from a llama-family safetensors file (the port's own
-reader), bridge from the JAX package's flax tree (``params_from_jax``),
-or are seeded random draws from an explicit torch.Generator.
+Weights load from a llama-family GGUF file (models/gguf.py) or
+safetensors file (the port's own reader), bridge from the JAX package's
+flax tree (``params_from_jax``), or are seeded random draws from an
+explicit torch.Generator.
 """
 from __future__ import annotations
 
@@ -706,7 +707,7 @@ class CompletionModel:
                  kv_dtype: str | None = None,
                  suffix_buckets: tuple[int, ...] = (16, 64)):
         """params: a Decoder state_dict (e.g. from params_from_jax);
-        weights: a .safetensors checkpoint path.  device: "cuda"
+        weights: a .gguf or .safetensors checkpoint path.  device: "cuda"
         (default) or "cpu".  kv_dtype: init_paged's default pool
         storage (None = the activation dtype).  suffix_buckets: the pad
         buckets of paged_append_prefill's stacks (longer suffixes loop
@@ -725,10 +726,10 @@ class CompletionModel:
         self.top_p, self.temp = top_p, temp
         if params is None and weights is not None:
             if weights.endswith(".gguf"):
-                raise NotImplementedError(
-                    "GGUF checkpoints are not yet ported to the torch "
-                    "package; convert to .safetensors")
-            params = load_safetensors_params(weights, cfg)
+                from .gguf import load_decoder_params
+                params = load_decoder_params(weights, cfg)
+            else:
+                params = load_safetensors_params(weights, cfg)
         with torch.device(self.device):
             module = Decoder(cfg)
         if params is None:

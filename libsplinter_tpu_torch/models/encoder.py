@@ -20,10 +20,11 @@ Buckets at or above ``flash_min_seq`` attend through kernel K1
 (ops/flash_attention.py); shorter ones through the plain masked
 softmax, as in the JAX package.
 
-Weights load from a safetensors file (this module's own small reader,
-so the port needs no safetensors package) or bridge from the JAX
-package's flax tree (``params_from_jax``); otherwise the model runs
-with seeded random weights drawn from an explicit torch.Generator.
+Weights load from a GGUF file (models/gguf.py) or a safetensors file
+(this module's own small reader, so the port needs no safetensors
+package), or bridge from the JAX package's flax tree
+(``params_from_jax``); otherwise the model runs with seeded random
+weights drawn from an explicit torch.Generator.
 """
 from __future__ import annotations
 
@@ -611,7 +612,7 @@ class EmbeddingModel:
                  params: dict | None = None, weights: str | None = None,
                  fetch_dtype: str | None = None, device=None):
         """params: an Encoder state_dict (e.g. from params_from_jax);
-        weights: a .safetensors checkpoint path.  device: "cuda"
+        weights: a .gguf or .safetensors checkpoint path.  device: "cuda"
         (default) or "cpu".  fetch_dtype: None returns f32 embeddings
         from the device; "f16"/"bf16" cast the (already f32-pooled,
         L2-normalized) output on the device and fetch 2 bytes per
@@ -637,10 +638,10 @@ class EmbeddingModel:
         self._buckets_arr = np.asarray(self.buckets, np.int64)
         if params is None and weights is not None:
             if weights.endswith(".gguf"):
-                raise NotImplementedError(
-                    "GGUF checkpoints are not yet ported to the torch "
-                    "package; convert to .safetensors")
-            params = load_safetensors_params(weights, cfg)
+                from .gguf import load_encoder_params
+                params = load_encoder_params(weights, cfg)
+            else:
+                params = load_safetensors_params(weights, cfg)
         with torch.device(self.device):
             module = Encoder(cfg)
         if params is None:

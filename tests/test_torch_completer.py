@@ -261,14 +261,16 @@ def test_main_serves_on_the_cpu(st, monkeypatch):
         tcomp.main(["--store", st.name, "--oneshot"])
 
 
+# explicit ids: each case keeps the id it had while the list also held
+# ["--weights", "model.gguf"] (flags12), a .gguf being served now
 @pytest.mark.parametrize("flags", [
     ["--kv-tier-pages", "64"], ["--kv-tier-persist"], ["--phase", "prefill"],
     ["--phase", "decode"], ["--tp", "2"], ["--ep", "2"],
     ["--draft-weights", "d.gguf"], ["--draft-layers", "6"], ["--quantized"],
     ["--weights-int8"], ["--weights", "int8"],
-    ["--continuous", "--phase", "decode"], ["--weights", "model.gguf"],
+    ["--continuous", "--phase", "decode"],
     ["--gamma", "4"], ["--spec-min-acceptance", "0.5"],
-])
+], ids=[f"flags{i}" for i in (*range(12), 13, 14)])
 def test_flags_not_yet_ported_exit_nonzero(flags):
     with pytest.raises(SystemExit) as exc:
         tcomp.main(["--store", "/spt-never-opened", "--device", "cpu",

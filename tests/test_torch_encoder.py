@@ -178,7 +178,7 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         tenc.EmbeddingModel(tenc.EncoderConfig.tiny(weights_int8=True),
                             device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):     # .gguf goes to the loader
         tenc.EmbeddingModel(tenc.EncoderConfig.tiny(),
                             weights=str(tmp_path / "m.gguf"), device="cpu")
     with pytest.raises(ValueError):

@@ -20,7 +20,20 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "safetensors", "libsplinter_tpu")
 VERBATIM = ("_native.py", "store.py", "utils/faults.py",
             "engine/protocol.py", "engine/qos.py", "engine/resident.py",
             "engine/client.py", "engine/prefix_cache.py", "obs/hist.py",
-            "obs/recorder.py", "obs/prom.py", "obs/spans.py")
+            "obs/recorder.py", "obs/prom.py", "obs/spans.py",
+            "models/gguf_writer.py")
+
+# the parts of models/gguf.py copied unchanged from the JAX package's:
+# the container reader, every ggml dequantizer and the tokenizers (the
+# config derivation and the weight loaders are the port's own)
+GGUF_COPIED = ("GgufError", "TensorInfo", "GgufFile", "_dequant_q8_0",
+               "_dequant_q4_0", "_dequant_q4_1", "_dequant_q5_0",
+               "_dequant_q5_1", "_kq_blocks", "_scale_min_k4",
+               "_dequant_q4_k", "_dequant_q5_k", "_dequant_q6_k",
+               "_dequant_q2_k", "_dequant_q3_k", "_dequant_q8_k", "_take",
+               "_SpecialTokens", "load_tokenizer", "UnigramTokenizer",
+               "_as_gguf", "_MaybeClose", "_gpt2_byte_map",
+               "ByteBpeTokenizer")
 
 
 def _sources():
@@ -74,6 +87,30 @@ print(len(mods))
 def test_copies_stay_verbatim(rel):
     assert filecmp.cmp(PORT / rel, ROOT / "libsplinter_tpu" / rel,
                        shallow=False), rel
+
+
+@pytest.mark.parametrize("name", GGUF_COPIED)
+def test_gguf_copied_parts_stay_verbatim(name):
+    import inspect
+
+    from libsplinter_tpu.models import gguf as ref
+
+    from libsplinter_tpu_torch.models import gguf as port
+    assert inspect.getsource(getattr(port, name)) == \
+        inspect.getsource(getattr(ref, name)), name
+
+
+def test_gguf_constants_equal():
+    """The ggml type ids, metadata value types and token types."""
+    from libsplinter_tpu.models import gguf as ref
+
+    from libsplinter_tpu_torch.models import gguf as port
+    names = [n for n in dir(ref) if n.lstrip("_").isupper()
+             and isinstance(getattr(ref, n), (int, dict))]
+    assert {"GGUF_MAGIC", "QK_K", "GGML_Q6_K", "_T_ARRAY", "_SCALAR_FMT",
+            "_TYPE_NAMES", "TOKTYPE_BYTE"} <= set(names)
+    for name in names:
+        assert getattr(port, name) == getattr(ref, name), name
 
 
 def test_protocol_constants_equal():
