@@ -1,8 +1,10 @@
 """Drive the torch port's embed -> vector-commit -> search path, its
 dense completion lane, its continuous (block-paged) completion lane,
-the encoder's contrastive trainer and GGUF checkpoints opened cold by
-the embedder and the completer on one NVIDIA GPU, with every CUDA
-kernel held against its plain PyTorch version.
+the encoder's contrastive trainer, GGUF checkpoints opened cold by the
+embedder and the completer, and the completer's serving variants
+(int8-resident weights, the host-DRAM KV tier, the disaggregated
+prefill/decode lanes) on one NVIDIA GPU, with every CUDA kernel held
+against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -90,12 +92,33 @@ Phases (any failure exits non-zero and prints no result line):
      completer.main --weights <file> --continuous --template auto
      resolves chatml and serves 8 requests (K4, K5) with no abort.
      Write and cold-load seconds and each lane's rate are printed;
-  9. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+  9. serving variants, all at DecoderConfig() full width on the
+     continuous lane with greedy sampling, 64 new tokens a request:
+     quant — the seeded float weights held as Q8_0 blocks
+     (--quantized) and per output channel (--weights-int8), each
+     variant's first-step logits against the float model on the
+     dequantized weights (f32 within 1e-3, bf16 cosine >= 0.999), the
+     projection bytes resident against bf16 (0.5625 and ~0.5), 16
+     requests through run_continuous, and phase 8's decoder file opened
+     with quantized=True, layer 0's Q8_0 codes and scales on the card
+     equal to the file's blocks; tier — a 24-page pool with a host-DRAM
+     tier: a shared-prefix prompt served, served again resident, pushed
+     out by four long prompts (demoted) and served a third time
+     (readmitted: tier_readmits > 0, its completion byte-identical to
+     the resident one's), then export_page_bytes / import_page_bytes
+     timed per page; disagg — a PrefillLane and a DecodeLane on two
+     threads over one file-backed store (a 4.7 MB wire page per value)
+     serve 16 requests, compared with the unified lane's completions,
+     and each prompt's first decode step over adopted wire pages held
+     against the same step over the pages it was prefilled into
+     (cosine >= 0.999; bit-identical expected); the handoff MB and wall;
+ 10. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
      (K5, by query tokens and by splits: a launch of more than one
-     split runs the combine kernel too), 7 (K6) and 8 (K1, K2, K4, K5
-     from GGUF weights, added to the sums), each counted from 0 just
-     before its path runs.
+     split runs the combine kernel too), 7 (K6), 8 (K1, K2, K4, K5
+     from GGUF weights) and 9 (K4, K5 on each variant's path), each
+     counted from 0 just before its path runs, phases 8 and 9 added to
+     the sums.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2445,20 +2468,454 @@ def _gguf_decoder(card, timings, tmp):
     return {k: counts[k] for k in ("causal_fwd", "paged_fwd")}
 
 
-def phase_gguf(card, timings):
+def phase_gguf(card, timings, tmp):
     """GGUF checkpoints opened cold by the port on the card: the golden
-    fixture, then full-width encoder and decoder files written here."""
+    fixture, then full-width encoder and decoder files written into
+    `tmp` (phase 9 opens the decoder file again)."""
     t0 = time.perf_counter()
     _gguf_golden(card, timings)
-    tmp = tempfile.mkdtemp(prefix="spt-smoke-gguf-")
-    try:
-        counts = _gguf_encoder(card, timings, tmp)
-        counts.update(_gguf_decoder(card, timings, tmp))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _gguf_encoder(card, timings, tmp)
+    counts.update(_gguf_decoder(card, timings, tmp))
     timings["gguf_s"] = time.perf_counter() - t0
     log(f"gguf phase: {timings['gguf_s']:.1f}s [{card}]")
     return counts
+
+
+# -- phase 9: serving variants ------------------------------------------------
+
+VARIANT_NEW_TOKENS = 64
+
+
+def _variant_prompts(rng, n):
+    """n of phase 6's prompts (distinct and shared-prefix, 40-1500
+    bytes; some land in buckets of 512 and up, so K4 runs)."""
+    wave1, wave2 = _continuous_prompts(rng)
+    both = [(k, t) for k, t in {**wave1, **wave2}.items()
+            if not k.startswith("r/")]
+    return dict(both[:n])
+
+
+def _served_bytes(st, prompts):
+    return {k: bytes(st.get(k).rstrip(b"\0")) for k in prompts}
+
+
+def _lane_run(comp, st, P, prompts, what):
+    """Serve `prompts` through run_continuous (on this thread, stopped
+    when all are READY) with K4/K5 counted from 0; check READY, the
+    full token budget and no abort.  Returns (launches, wall s)."""
+    import torch
+
+    from libsplinter_tpu_torch.ops import _cuda
+
+    _cuda.LAUNCHES.reset()
+    t_before = comp.stats.tokens
+    n, wall = _drive_continuous(comp, st, P, [prompts])
+    torch.cuda.synchronize()
+    counts = {k: _cuda.LAUNCHES[k] for k in ("causal_fwd", "paged_fwd")}
+    _check_no_abort(comp, comp.stats.tokens - t_before, n, what)
+    _check_served(st, P, prompts)
+    check(counts["causal_fwd"] > 0 and counts["paged_fwd"] > 0,
+          f"{what}: K4/K5 never launched: {counts}")
+    return counts, wall
+
+
+def _proj_bytes_bf16(cfg):
+    """bf16 bytes of the decoder's attention + MLP projections."""
+    d = cfg.head_dim
+    per_layer = (cfg.hidden * cfg.heads * d * 2 + cfg.hidden * cfg.kv_heads
+                 * d * 2 + 3 * cfg.hidden * cfg.mlp_dim)
+    return 2 * cfg.layers * per_layer
+
+
+def _dequantized_state(qsd):
+    """A quantized state_dict's projections as float (out, in) weights:
+    the values the int8 codes and scales stand for."""
+    import torch
+
+    from libsplinter_tpu_torch.models.quant import (dequantize_channel_kernel,
+                                                    dequantize_kernel)
+    out = {}
+    for k, v in qsd.items():
+        head, leaf = k.rsplit(".", 1)
+        if leaf == "q":
+            w = dequantize_kernel({"q": v.numpy(),
+                                   "scale": qsd[f"{head}.scale"].numpy()})
+            out[f"{head}.weight"] = torch.from_numpy(w.T.copy())
+        elif leaf == "wq":
+            w = dequantize_channel_kernel(
+                {"wq": v.numpy(), "wscale": qsd[f"{head}.wscale"].numpy()})
+            out[f"{head}.weight"] = torch.from_numpy(w.T.copy())
+        elif leaf not in ("scale", "wscale"):
+            out[k] = v
+    return out
+
+
+def _variants_quant(card, timings, sd, prompts, gguf_path):
+    """--quantized and --weights-int8 from the same seeded float weights:
+    first-step logits against the float model on the dequantized
+    weights (f32: within 1e-3 of |logit| <= ~10, the same weights in
+    another rounding order; bf16: cosine >= 0.999), the projection bytes
+    resident against bf16, 16 requests through run_continuous, and phase
+    8's decoder GGUF opened quantized with layer 0's Q8_0 codes equal to
+    the file's."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.models import (CompletionModel, DecoderConfig,
+                                              GgufFile,
+                                              decoder_config_from_gguf)
+    from libsplinter_tpu_torch.models.quant import (QUANT_LEAVES,
+                                                    quantize_state_dict,
+                                                    resident_bytes)
+
+    cfg = DecoderConfig()
+    ids = np.asarray(_piece_tokenizer().encode(prompts["s/00"]), np.int32)
+    launches, out = {}, {}
+    for variant, mode in (("quantized", "block"), ("weights_int8", "channel")):
+        qsd = quantize_state_dict(sd, QUANT_LEAVES, mode=mode)
+        dq = _dequantized_state(qsd)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            qcfg = dataclasses.replace(cfg, dtype=dt, **{variant: True})
+            qm = CompletionModel(qcfg, params=qsd, temp=0.0, device="cuda")
+            fm = CompletionModel(dataclasses.replace(cfg, dtype=dt),
+                                 params=dq, temp=0.0, device="cuda")
+            a, b = qm.prefill(ids), fm.prefill(ids)
+            tok = int(np.argmax(b))
+            a2, b2 = qm.decode_one(tok), fm.decode_one(tok)
+            cos = min(float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))
+                      for x, y in ((a, b), (a2, b2)))
+            err = max(float(np.abs(a - b).max()), float(np.abs(a2 - b2).max()))
+            errs[str(dt).removeprefix("torch.")] = (err, cos)
+            if dt == torch.float32:
+                check(err <= 1e-3, f"{variant} f32: logits {err} from the "
+                      f"float model on the dequantized weights (bar 1e-3)")
+            else:
+                check(cos >= 0.999, f"{variant} bf16: logits cosine {cos}")
+                model = qm
+            del fm
+        torch.cuda.empty_cache()
+        ratio = resident_bytes(model.module) / _proj_bytes_bf16(cfg)
+        want = 0.5625 if mode == "block" else 0.5 + 2 / cfg.hidden
+        check(abs(ratio - want) < 0.01, f"{variant}: projections hold "
+              f"{ratio:.4f} x bf16, geometry {want:.4f}")
+        name = f"/spt-smoke-q{os.getpid()}"
+        st = Store.create(name, nslots=128, max_val=8192, vec_dim=0)
+        try:
+            comp = Completer(st, model=model, tokenizer=_piece_tokenizer(),
+                             template="none",
+                             max_new_tokens=VARIANT_NEW_TOKENS)
+            comp.attach()
+            counts, wall = _lane_run(comp, st, P, prompts, variant)
+        finally:
+            st.close()
+            Store.unlink(name)
+        tokens = len(prompts) * VARIANT_NEW_TOKENS
+        launches[variant] = counts
+        log(f"variants, {variant}: first-step logits vs the float model on "
+            f"the dequantized weights: f32 max err {errs['float32'][0]:.3e} "
+            f"(bar 1e-3), bf16 max err {errs['bfloat16'][0]:.4f} cosine "
+            f"{errs['bfloat16'][1]:.6f} (bar 0.999); projections resident "
+            f"{resident_bytes(model.module)} bytes = {ratio:.4f} x bf16; "
+            f"{len(prompts)} requests, {tokens} tokens in {wall:.3f}s = "
+            f"{tokens / wall:.1f} tokens/s (cold, prefill included); K4 "
+            f"{counts['causal_fwd']}, K5 {counts['paged_fwd']} [{card}]")
+        out[variant] = {"f32_max_err": errs["float32"][0],
+                        "bf16_max_err": errs["bfloat16"][0],
+                        "bf16_cosine": errs["bfloat16"][1],
+                        "resident_ratio": ratio, "wall_s": wall,
+                        "tokens_per_s": tokens / wall}
+        del model, comp
+        torch.cuda.empty_cache()
+
+    # phase 8's decoder file, served quantized: layer 0's attention is
+    # Q8_0 there, and requantizing Q8_0 is lossless
+    with GgufFile(gguf_path) as gf:
+        gcfg = decoder_config_from_gguf(gf, quantized=True)
+        block = np.dtype([("d", "<f2"), ("qs", "i1", (32,))])
+        raw = {}
+        for gname in ("attn_q", "attn_k", "attn_v", "attn_output"):
+            ti = gf.tensors[f"blk.0.{gname}.weight"]
+            din, dout = ti.dims
+            raw[gname] = np.frombuffer(
+                gf._mm, block, count=din * dout // 32,
+                offset=gf._data_start + ti.offset).reshape(
+                    dout, din // 32).copy()
+    t0 = time.perf_counter()
+    gm = CompletionModel(gcfg, weights=gguf_path, device="cuda")
+    load_s = time.perf_counter() - t0
+    for mod, gname in (("q", "attn_q"), ("k", "attn_k"), ("v", "attn_v"),
+                       ("out", "attn_output")):
+        m = getattr(gm.module.layer_0.attn, mod)
+        q = torch.from_numpy(raw[gname]["qs"].transpose(1, 2, 0).copy())
+        d = torch.from_numpy(raw[gname]["d"].astype(np.float32).T.copy())
+        check(torch.equal(m.q.cpu(), q) and torch.equal(m.scale.cpu(), d),
+              f"gguf --quantized: layer 0 {gname} codes/scales differ from "
+              f"the file's Q8_0 blocks")
+    del gm
+    torch.cuda.empty_cache()
+    log(f"variants, gguf --quantized: layer 0 attention's int8 codes and "
+        f"scales on the card equal the file's Q8_0 blocks exactly (4 "
+        f"tensors); load + requantize {load_s:.2f}s [{card}]")
+    out["gguf_quantized_load_s"] = load_s
+    timings["variants_quant"] = out
+    return launches
+
+
+def _variants_tier(card, timings, model, prompts):
+    """The lane over a pool too small to keep finished prompts, with a
+    host-DRAM tier: a shared-prefix prompt served, served again while
+    its pages are resident, pushed out by long prompts (its pages
+    demote), then served a third time (its pages readmitted) — the third
+    completion byte-identical to the second; then the wire's export and
+    import per page."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.ops import _cuda
+
+    hot = {k: t for k, t in prompts.items() if k.startswith("s/")}
+    key = next(iter(hot))
+    fill = sorted(((k, t) for k, t in prompts.items()
+                   if k.startswith("d/")), key=lambda kt: -len(kt[1]))[:4]
+    name = f"/spt-smoke-t{os.getpid()}"
+    st = Store.create(name, nslots=128, max_val=8192, vec_dim=0)
+    try:
+        comp = Completer(st, model=model, tokenizer=_piece_tokenizer(),
+                         template="none", max_new_tokens=VARIANT_NEW_TOKENS,
+                         pool_pages=24, kv_tier_pages=128)
+        comp.attach()
+        _cuda.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        outs = []
+        for rnd in range(3):
+            if rnd == 2:
+                for fk, ft in fill:
+                    _drive_continuous(comp, st, P, [{fk: ft}])
+            _drive_continuous(comp, st, P, [{key: hot[key]}])
+            outs.append(bytes(st.get(key).rstrip(b"\0")))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = {k: _cuda.LAUNCHES[k] for k in ("causal_fwd", "paged_fwd")}
+        comp.publish_stats()
+        snap = json.loads(st.get(P.KEY_COMPLETE_STATS).rstrip(b"\0"))
+        _check_no_abort(comp, comp.stats.tokens, 3 + len(fill),
+                        "tier lane")
+        check(snap["tier_readmits"] > 0 and snap["tier_demotions"] > 0,
+              f"tier lane: demotions {snap['tier_demotions']}, readmits "
+              f"{snap['tier_readmits']}")
+        check(outs[2] == outs[1], "tier lane: the readmitted prompt's "
+              "completion differs from the resident one's")
+        check(counts["causal_fwd"] > 0 and counts["paged_fwd"] > 0,
+              f"tier lane: K4/K5 never launched: {counts}")
+        check(comp._paged_cache.used_pages == 0, "tier lane: pages leaked")
+    finally:
+        st.close()
+        Store.unlink(name)
+
+    # the wire alone: one row's pages out to host bytes and back in
+    ids = np.asarray(_piece_tokenizer().encode(fill[0][1]), np.int32)
+    cache = model.init_paged(2)
+    model.paged_prefill_row(cache, ids, 0)
+    n_pages = len(cache._owned[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = [model.export_page_bytes(cache, int(b))
+             for b in cache.tables[0, :n_pages]]
+    export_ms = (time.perf_counter() - t0) / n_pages * 1e3
+    check(cache.ensure(1, len(ids)), "tier wire: no room for the copy")
+    t0 = time.perf_counter()
+    for p, (buf, sbuf) in enumerate(pages):
+        model.import_page_bytes(cache, int(cache.tables[1, p]), buf, sbuf)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) / n_pages * 1e3
+    for li in range(model.cfg.layers):
+        a = cache.k_pools[li][cache.tables[0, :n_pages]]
+        b = cache.k_pools[li][cache.tables[1, :n_pages]]
+        check(torch.equal(a, b), "tier wire: imported pages differ")
+    page_mb = model.page_wire_bytes(cache) / 1e6
+    cache.reset()
+    del cache
+    torch.cuda.empty_cache()
+    log(f"variants, tier: pool 24 pages + host tier 128; "
+        f"tier_demotions {snap['tier_demotions']}, tier_readmits "
+        f"{snap['tier_readmits']}, tier_spills {snap['tier_spills']}, "
+        f"prefix hits {snap['prefix_hits']}; the readmitted prompt's "
+        f"completion byte-identical to the resident one's; {wall:.2f}s "
+        f"for {3 + len(fill)} requests; K4 {counts['causal_fwd']}, K5 "
+        f"{counts['paged_fwd']} [{card}]")
+    log(f"  page wire (bf16, {page_mb:.3f} MB a page, host wall): "
+        f"export_page_bytes {export_ms:.3f} ms a page, import_page_bytes "
+        f"{import_ms:.3f} ms a page ({n_pages} pages) [{card}]")
+    timings["variants_tier"] = {
+        "tier_readmits": snap["tier_readmits"],
+        "tier_demotions": snap["tier_demotions"], "wall_s": wall,
+        "export_ms_per_page": export_ms, "import_ms_per_page": import_ms,
+        "page_mb": page_mb}
+    return counts
+
+
+def _variants_disagg(card, timings, model, prompts, tmp):
+    """A PrefillLane and a DecodeLane on the one card over one store (one
+    process, the lanes on two threads), 16 requests; completions against
+    the unified lane's on the same prompts, and each prompt's first decode
+    step over adopted wire pages against the same step over the pages it
+    was prefilled into."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.engine.disagg import DecodeLane, PrefillLane
+    from libsplinter_tpu_torch.ops import _cuda
+
+    kw = dict(tokenizer=_piece_tokenizer(), template="none",
+              max_new_tokens=VARIANT_NEW_TOKENS)
+    walls = []
+
+    class TimedPrefill(PrefillLane):
+        def _handoff_one(self, idx):
+            t0 = time.perf_counter()
+            done = super()._handoff_one(idx)
+            walls.append(time.perf_counter() - t0)
+            return done
+
+    outs = {}
+    # the handoff writes each wire page (4.7 MB at full width) as one
+    # store value: the split lanes share a file-backed store whose
+    # values hold a page
+    wire_path = os.path.join(tmp, "disagg.spt")
+    for tag in ("unified", "split"):
+        if tag == "unified":
+            name = f"/spt-smoke-du{os.getpid()}"
+            st = Store.create(name, nslots=256, max_val=8192, vec_dim=0)
+        else:
+            name = wire_path
+            st = Store.create(name, nslots=512, max_val=5 << 20, vec_dim=0,
+                              persistent=True)
+        try:
+            if tag == "unified":
+                comp = Completer(st, model=model, **kw)
+                comp.attach()
+                _, uwall = _drive_continuous(comp, st, P, [prompts])
+                outs[tag] = _served_bytes(st, prompts)
+                continue
+            pf, dl = TimedPrefill(st, model=model, **kw), \
+                DecodeLane(st, model=model, **kw)
+            pf.attach()
+            dl.attach()
+            _cuda.LAUNCHES.reset()
+            th = threading.Thread(target=pf.run_continuous,
+                                  kwargs=dict(idle_timeout_ms=20,
+                                              stop_after=900.0),
+                                  daemon=True)
+            th.start()
+            n, wall = _drive_continuous(dl, st, P, [prompts])
+            pf.stop()
+            th.join(timeout=60)
+            torch.cuda.synchronize()
+            counts = {k: _cuda.LAUNCHES[k]
+                      for k in ("causal_fwd", "paged_fwd")}
+            _check_served(st, P, prompts)
+            _check_no_abort(dl, dl.stats.tokens, n, "disagg decode lane")
+            check(pf.stats.faults == 0, f"disagg prefill lane: "
+                  f"{pf.stats.faults} key faults")
+            pstats, dstats = dict(pf._lane_stats), dict(dl._lane_stats)
+            check(pstats["handoffs"] == n and dstats["adopted"] == n
+                  and dstats["handoff_refill"] == 0
+                  and pstats["handoff_failed"] == 0,
+                  f"disagg: prefill {pstats}, decode {dstats}")
+            check(counts["causal_fwd"] > 0 and counts["paged_fwd"] > 0,
+                  f"disagg: K4/K5 never launched: {counts}")
+            outs[tag] = _served_bytes(st, prompts)
+        finally:
+            st.close()
+            Store.unlink(name, persistent=tag == "split")
+    same = sum(outs["split"][k] == outs["unified"][k] for k in prompts)
+
+    # the wire itself: each prompt's first decode step over its adopted
+    # pages against the same step over the pages it was prefilled into
+    worst_cos, worst_err, exact = 1.0, 0.0, 0
+    src, dst = model.init_paged(2), model.init_paged(2)
+    tok_izer = _piece_tokenizer()
+    for key, text in prompts.items():
+        ids = np.asarray(tok_izer.encode(text), np.int32)
+        logits = model.paged_prefill_row(src, ids, 0)
+        pages, scales = model.export_row_pages(src, 0)
+        check(model.paged_adopt_row(dst, 0, len(ids), pages, scales),
+              "disagg wire: adoption backpressured in an empty pool")
+        tok = int(np.argmax(logits))
+        steps = []
+        for cache in (src, dst):
+            with torch.no_grad():
+                toks = torch.zeros((2, 1), dtype=torch.int64, device="cuda")
+                toks[0, 0] = tok
+                lg = model.module(
+                    toks, cache.layers(), 0,
+                    lengths=torch.from_numpy(cache.lengths.copy()).cuda(),
+                    tables=torch.from_numpy(cache.tables.copy()).cuda())
+            steps.append(lg[0, 0].float().cpu().numpy())
+        a, b = steps
+        exact += int(np.array_equal(a, b))
+        worst_err = max(worst_err, float(np.abs(a - b).max()))
+        worst_cos = min(worst_cos, float(a @ b / (np.linalg.norm(a)
+                                                  * np.linalg.norm(b))))
+        src.free_row(0)
+        dst.free_row(0)
+    check(worst_cos >= 0.999, f"disagg wire: first-step logits cosine "
+          f"{worst_cos} over adopted pages")
+    del src, dst
+    torch.cuda.empty_cache()
+    wire_mb = pstats["handoff_wire_mb"]
+    log(f"variants, disagg: the unified lane (bf16 weights) first, {n} "
+        f"requests, {n * VARIANT_NEW_TOKENS} tokens in {uwall:.3f}s = "
+        f"{n * VARIANT_NEW_TOKENS / uwall:.1f} tokens/s; PrefillLane + "
+        f"DecodeLane, {n * VARIANT_NEW_TOKENS} tokens in {wall:.3f}s = "
+        f"{n * VARIANT_NEW_TOKENS / wall:.1f} tokens/s; {same} of {n} "
+        f"completions identical to the unified lane's; handoffs "
+        f"{pstats['handoffs']}, wire {wire_mb:.3f} MB "
+        f"({wire_mb / n:.3f} MB a handoff), prefill + handoff wall "
+        f"{np.mean(walls) * 1e3:.1f} ms a handoff (mean of {len(walls)}); "
+        f"first decode step over adopted pages vs the prefilled ones: "
+        f"{exact} of {n} bit-identical, max err {worst_err:.3e}, cosine "
+        f">= {worst_cos:.6f}; K4 {counts['causal_fwd']}, K5 "
+        f"{counts['paged_fwd']} [{card}]")
+    timings["variants_disagg"] = {
+        "requests": n, "identical": same, "wall_s": wall,
+        "unified_wall_s": uwall,
+        "wire_mb": wire_mb, "handoff_ms": float(np.mean(walls) * 1e3),
+        "step_exact": exact, "step_max_err": worst_err}
+    return counts
+
+
+def phase_variants(card, timings, tmp):
+    """Int8-resident weights, the host-DRAM KV tier and the disaggregated
+    lanes, each at DecoderConfig() full width on the continuous lane
+    with greedy sampling; returns K4/K5 launches by path."""
+    import torch
+
+    from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
+
+    t0 = time.perf_counter()
+    model = CompletionModel(DecoderConfig(), seed=0, temp=0.0,
+                            device="cuda")
+    # the float weights every variant starts from, f32 on the host
+    sd = {k: v.float().cpu() for k, v in model.module.state_dict().items()}
+    prompts = _variant_prompts(np.random.default_rng(11), 16)
+    # one entry a path: the two weight residencies, the tier, the split
+    launches = _variants_quant(card, timings, sd, prompts,
+                               os.path.join(tmp, "decoder-f16-q8-q4.gguf"))
+    launches["tier"] = _variants_tier(card, timings, model, prompts)
+    launches["disagg"] = _variants_disagg(card, timings, model, prompts, tmp)
+    del model, sd
+    torch.cuda.empty_cache()
+    timings["variants_s"] = time.perf_counter() - t0
+    log(f"variants phase: {timings['variants_s']:.1f}s [{card}]")
+    return launches
 
 
 def _lane_slots(requested: int) -> int:
@@ -2496,6 +2953,7 @@ def main() -> int:
     results: dict = {}
     timings: dict = {}
     t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spt-smoke-files-")
     try:
         name, count, card = phase_device()
         phase_build()
@@ -2516,14 +2974,23 @@ def main() -> int:
         counts["flash_bwd"] = phase_train(card, timings)["flash_bwd"]
         # K1, K2, K4 and K5 again from GGUF-loaded weights, counted from
         # 0 before each of this phase's paths: the record carries sums
-        gguf = phase_gguf(card, timings)
+        gguf = phase_gguf(card, timings, tmp)
         for k, v in gguf.items():
             counts[k] += v
         timings["gguf_launches"] = gguf
+        # K4 and K5 once more on each serving variant's path (int8
+        # weights, the KV tier, the split lanes), each counted from 0
+        variants = phase_variants(card, timings, tmp)
+        for path in variants.values():
+            for k, v in path.items():
+                counts[k] += v
+        timings["variants_launches"] = variants
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     log(json.dumps({"kernels": counts}))
     if not all(counts[k] > 0 for k in REPLACES):

@@ -36,10 +36,13 @@ suffix prefill attends through kernel K5.  The label protocol, flush
 cadence, truncation, ctime backfill and __debug lines are the JAX
 daemon's, so torch and JAX daemons share one store.  ``main`` serves a
 .gguf checkpoint from the file alone (geometry, tokenizer, chat
-template, weights).  Not ported yet: the KV tier, the disaggregated
-prefill/decode lanes, quantized weights, speculative decoding and
-sharded serving — ``main`` refuses their flags instead of serving
-another way.
+template, weights), int8-resident weights (--quantized, --weights-int8),
+a host-DRAM KV tier under the prefix cache (--kv-tier-pages, its warm
+snapshots with --kv-tier-persist; engine/kv_tier.py) and the
+disaggregated prefill/decode lanes (--phase; engine/disagg.py
+subclasses this daemon through the _lane_* hooks below).  Not ported
+yet: speculative decoding, MoE and sharded serving — ``main`` refuses
+their flags instead of serving another way.
 """
 from __future__ import annotations
 
@@ -182,13 +185,15 @@ class Completer:
                  prefix_cache_pages: int | None = None,
                  prefix_quotas: dict[int, int] | None = None,
                  prefix_default_quota: int | None = None,
+                 kv_tier_pages: int = 0,
+                 kv_tier_persist: str | None = None,
                  replica: int = 0,
                  device=None):
         """model: a CompletionModel; when neither it nor generate_fn is
         given, a seeded-random one is built on `device` ("cuda" by
         default, or "cpu").  page_size, pool_pages, kv_dtype,
-        inflight_depth and the prefix_* arguments shape the continuous
-        lane (run_continuous)."""
+        inflight_depth, the prefix_* and the kv_tier_* arguments shape
+        the continuous lane (run_continuous)."""
         self.store = store
         # elastic lanes (protocol.StripeView): replica r drains only
         # its own slot-index stripe; stranded-SERVICING reclaim is
@@ -250,8 +255,30 @@ class Completer:
             weights=tenant_weights, high_water=queue_high_water,
             **({"retry_after_ms": retry_after_ms}
                if retry_after_ms is not None else {}))
+        # phase-aware deadline slack: a request whose deadline passes
+        # before the lane's service phase even starts fast-fails NOW.
+        # The prefill lane (engine/disagg.py) feeds it a rolling
+        # prefill-wall EMA; 0.0 keeps the exact-expiry check.
+        self.qos_slack_s = 0.0
         self.tenants = TenantLedger()
         self._had_deferred = False
+        # the host-DRAM spill tier under the radix tree
+        # (engine/kv_tier.py): evicted zero-ref pages demote to host RAM
+        # instead of being dropped, and a hit on a demoted page readmits
+        # it (a host->device copy + block-table write) instead of a
+        # re-prefill.  kv_tier_persist names a file-backed store segment
+        # the warm set checkpoints into, so a restart attaches WARM;
+        # replica 0 writes the snapshots, every replica loads.
+        self._tier_pages = max(0, int(kv_tier_pages))
+        self._tier_persist_name = kv_tier_persist
+        self.kv_tier = None
+        self._tier_store = None
+        self._tier_restore: tuple[int, str] = (0, "off")
+        self._tier_last_save = 0.0
+        # the disaggregated decode lane (engine/disagg.py): when set,
+        # run_continuous's admission delegates to this callable —
+        # ADOPTION of DECODE_READY handoffs instead of WAITING joins
+        self._lane_admit = None
         if template not in TEMPLATES:
             raise ValueError(
                 f"unknown chat template {template!r} (supported: "
@@ -459,7 +486,7 @@ class Completer:
                 and capacity >= len(idxs):
             self._had_deferred = False
             return idxs
-        plan = self.qos.plan(rows, capacity)
+        plan = self.qos.plan(rows, capacity, slack_s=self.qos_slack_s)
         for row in plan.expired:
             self._terminal_reject(row.item,
                                   P.DEADLINE_EXPIRED_DIAGNOSTIC,
@@ -686,8 +713,12 @@ class Completer:
         st = self.store
         span = self._live_spans.pop(key, None)
         # the request's device window (dispatch->collect across its
-        # prefill and decode chunks) — drain-scoped, SpanWriter.commit
+        # prefill and decode chunks) — drain-scoped, SpanWriter.commit.
+        # The programs register under "completer.*", so a split lane
+        # drains that accumulator too
         device_ms = DEVTIME.take_lane_ms(self.LANE)
+        if self.LANE != "completer":
+            device_ms += DEVTIME.take_lane_ms("completer")
         if span is None and stages:
             # tail-based retention: a slow request that carried no
             # trace stamp still keeps full INFER_STAGES detail — one
@@ -741,6 +772,17 @@ class Completer:
             # tenant bits survive the claim (only INFER/WAITING were
             # cleared), so goodput attribution needs no plumbing
             self.tenants.bump(tenant, "served_tokens", n_tok)
+
+    # -- disaggregated-lane hooks (engine/disagg.py overrides) -------------
+
+    def _lane_row_done(self, row: dict) -> None:
+        """A continuous-lane row retired (finish or mid-decode kill).
+        The decode lane deletes the row's handoff record + wire pages
+        here; the unified lane has nothing to clean up."""
+
+    def _lane_payload(self, payload: dict) -> None:
+        """Lane-specific heartbeat sections (handoff counters, adoption
+        gauges) land here just before publish."""
 
     def _rebid(self) -> None:
         if self._bid >= 0:
@@ -937,7 +979,43 @@ class Completer:
                         default_quota=self._prefix_default_quota)
                 self.prefix_cache.attach(cache)
                 cache.prefix_cache = self.prefix_cache
+                if self._tier_pages:
+                    self._bind_tier(cache)
         return self._paged_cache
+
+    def _bind_tier(self, cache) -> None:
+        """Wire the host-DRAM tier under the freshly attached radix
+        tree, then (with persistence on) load the last good snapshot so
+        THIS pool starts warm.  attach() just cleared the tree and the
+        tier, so a rebuilt pool reloads from the persistent segment
+        rather than trusting stale page ids."""
+        from .kv_tier import HostTier, TierPersist, tier_geometry
+        m = self._model
+        if self.kv_tier is None:
+            self.kv_tier = HostTier(self._tier_pages)
+        self.prefix_cache.bind_tier(
+            self.kv_tier,
+            export_page=lambda bid, _c=cache, _m=m:
+                _m.export_page_bytes(_c, bid),
+            import_page=lambda bid, buf, sbuf, _c=cache, _m=m:
+                _m.import_page_bytes(_c, bid, buf, sbuf))
+        if not self._tier_persist_name:
+            return
+        geom = tier_geometry(m, cache)
+        try:
+            if self._tier_store is None:
+                self._tier_store = TierPersist(
+                    self._tier_persist_name,
+                    capacity_pages=self._tier_pages,
+                    max_len=m.cfg.max_len,
+                    page_bytes=geom["page_bytes"])
+            self._tier_restore = self._tier_store.load(
+                self.prefix_cache, self.kv_tier, geom)
+        except OSError:
+            # persistence degraded (segment unopenable): serve cold with
+            # the in-RAM tier; the reason reaches the heartbeat
+            self._tier_store = None
+            self._tier_restore = (0, "restore_failed")
 
     def warmup_paged(self) -> None:
         """Run the continuous lane's whole program set against the pool
@@ -948,6 +1026,9 @@ class Completer:
         cache = self._ensure_paged_cache()
         self._model.warmup_paged(cache, chunk=max(1, self.flush_tokens),
                                  max_prompt=self._batched_budget())
+        if self.kv_tier is not None:
+            # demotions and readmissions ride the page wire
+            self._model.warmup_handoff(cache, export=True, adopt=True)
 
     def run_continuous(self, *, idle_timeout_ms: int = 100,
                        stop_after: float | None = None) -> None:
@@ -1014,12 +1095,25 @@ class Completer:
             if row is not None and row.get("spans") is not None:
                 row["spans"].append([name, round(ms, 3)])
 
+        def _lane_ctx() -> dict:
+            """What a disaggregated decode lane's _lane_admit seats rows
+            through — everything a join touches, read fresh (abort_all
+            rebinds the cache)."""
+            return {"rows": rows, "fresh": fresh, "cache": cache,
+                    "serial": serial, "step": step,
+                    "worst_len": worst_len, "span": span,
+                    "finish": finish}
+
         def admit() -> int:
             """Fill free rows from waiting keys; every admission is a
             join that prefills right here, batch empty or mid-decode."""
             free = [r for r in range(B) if rows[r] is None]
             if not free:
                 return 0
+            if self._lane_admit is not None:
+                # the disaggregated decode lane: admission is ADOPTION
+                # of DECODE_READY handoffs at this chunk edge
+                return self._lane_admit(free, _lane_ctx())
             self.stripes.refresh()    # admission IS this lane's drain
             waiting = [i for i in st.enumerate_indices(P.LBL_INFER_REQ)
                        if self.stripes.owns(int(i))]
@@ -1068,13 +1162,21 @@ class Completer:
                 # cached prompt's replay append takes
                 hit_bids: list[int] = []
                 match = 0
+                tier_nodes: list = []
                 if pc is not None and len(ids):
-                    hit_bids, match = pc.lookup(ids)
-                    if match == len(ids) and len(ids) < 2:
+                    # tier-aware walk: a run of pool pages, then a run of
+                    # demoted pages whose bytes sit in host RAM (a
+                    # readmission each instead of a re-prefill; their
+                    # pool pages come out of the same `need` budget)
+                    hit_bids, match, tier_nodes = pc.lookup_tiered(ids)
+                    if (match + len(tier_nodes) * cache.page == len(ids)
+                            and len(ids) < 2):
                         # a fully covered 1-token prompt would enter at
                         # lengths 0, the dead-row sentinel: a miss
-                        hit_bids, match = [], 0
-                full_cover = bool(hit_bids) and match == len(ids)
+                        hit_bids, match, tier_nodes = [], 0, []
+                match_all = match + len(tier_nodes) * cache.page
+                full_cover = ((bool(hit_bids) or bool(tier_nodes))
+                              and match_all == len(ids))
                 reserve = 0
                 if len(ids):
                     reserve = min(worst_len(len(ids))
@@ -1113,19 +1215,43 @@ class Completer:
                                      else None),
                            "wall0": time.perf_counter()}
                 ta = time.perf_counter()
-                if hit_bids:
+                if hit_bids or tier_nodes:
                     fault("completer.prefix_map")
-                    cache.map_shared(r, hit_bids)
-                    cache.lengths[r] = (len(ids) - 1 if full_cover
-                                        else match)
-                    pc.commit_hit(ids, match)
-                    pc.stats.bytes_saved += \
-                        match * cache.kv_bytes_per_token()
-                    if tenant:
-                        self.tenants.bump(tenant, "prefix_hit_pages",
-                                          len(hit_bids))
+                    if hit_bids:
+                        # pin the pool prefix FIRST: readmission below
+                        # may reclaim, and an unpinned zero-ref hit page
+                        # would be fair game for that eviction
+                        cache.map_shared(r, hit_bids)
+                    if tier_nodes:
+                        # host-DRAM hit: readmitted pages come back at
+                        # refcount 1; drop each to zero-ref (tree-held)
+                        # and map, so map_shared's 0 -> 1 bump pins it
+                        # for this row.  A partial readmission shortens
+                        # the hit; the rest prefills
+                        tier_bids = pc.readmit(tier_nodes, cache)
+                        for b in tier_bids:
+                            cache._decref(b)
+                        if tier_bids:
+                            cache.map_shared(r, tier_bids)
+                        hit_bids = hit_bids + tier_bids
+                        match += len(tier_bids) * cache.page
+                        if len(tier_bids) < len(tier_nodes):
+                            full_cover = False
+                    if not hit_bids:
+                        pc.note_miss()    # every readmission failed
+                    else:
+                        cache.lengths[r] = (len(ids) - 1 if full_cover
+                                            else match)
+                        pc.commit_hit(ids, match)
+                        pc.stats.bytes_saved += \
+                            match * cache.kv_bytes_per_token()
+                        if tenant:
+                            self.tenants.bump(tenant, "prefix_hit_pages",
+                                              len(hit_bids))
                 elif pc is not None and len(ids):
                     pc.note_miss()
+                # the uncached tail AFTER readmission: a partial
+                # readmission lengthens the suffix the prefill covers
                 suffix = ids[match:]
                 if not cache.ensure(r, reserve):
                     # defensive: the pinned-aware gate above makes this
@@ -1224,6 +1350,7 @@ class Completer:
                 wall = ((time.time() - ts) * 1e3 if ts > 0 else
                         (time.perf_counter() - row["wall0"]) * 1e3)
                 self.recorder.record(tid, row["key"], wall, row["spans"])
+            self._lane_row_done(row)  # decode lane: retire the handoff
             cache.free_row(r)         # pages back to the pool NOW
             rows[r] = None
             fresh[r] = -1
@@ -1251,6 +1378,7 @@ class Completer:
                 except (KeyError, OSError):
                     pass
                 self.spans.commit(span_rec, status=P.ERR_DEADLINE)
+                self._lane_row_done(row)
                 cache.free_row(r)
                 rows[r] = None
                 fresh[r] = -1
@@ -1312,6 +1440,9 @@ class Completer:
                     next_beat = now + 2.0
                     self._sweep_bp_memo()
                     self.publish_stats()
+                    # the warm set's checkpoint rides the beat (dirty-
+                    # gated: a quiet tier costs one flag read)
+                    self._tier_checkpoint()
 
                 try:
                     if all(r is None for r in rows):
@@ -1401,7 +1532,34 @@ class Completer:
                     finish(r)
             cache.reset()
             if self.prefix_cache is not None:
+                # with the tier bound every reclaimed page DEMOTES to
+                # host RAM first (demote-on-retire), and the forced
+                # checkpoint persists the whole warm set
                 self.prefix_cache.reclaim(cache.n_blocks)
+            self._tier_checkpoint(force=True)
+
+    def _tier_checkpoint(self, force: bool = False) -> None:
+        """Snapshot the radix index + host-tier pages into the
+        persistent segment (kv_tier.TierPersist.save: payload under the
+        new epoch first, the index record last, so a torn write leaves
+        the previous snapshot authoritative).  Replica 0 writes; peers
+        only load.  Beat-cadence calls are dirty-gated and rate-limited;
+        force is the retire path."""
+        if (self._tier_store is None or self.kv_tier is None
+                or self.prefix_cache is None or self.replica != 0):
+            return
+        now = time.monotonic()
+        if not force and (not self.kv_tier.dirty
+                          or now - self._tier_last_save < 5.0):
+            return
+        self._tier_last_save = now
+        from .kv_tier import tier_geometry
+        try:
+            self._tier_store.save(
+                self.prefix_cache, self.kv_tier,
+                tier_geometry(self._model, self._paged_cache))
+        except Exception as ex:
+            self._debug(f"tier checkpoint failed: {ex}")
 
     # -- drain loop --------------------------------------------------------
 
@@ -1475,9 +1633,9 @@ class Completer:
         reference's __debug chatter; sidecar group-63 watch surfaces
         it).  SPTPU_TRACE=1 adds histogram-sourced INFER_STAGES
         quantiles, recorder accounting, and the slow log.  The fields
-        are the JAX daemon's dense- and continuous-lane ones (the
-        speculative, sharded and KV-tier gauges arrive with those
-        lanes)."""
+        are the JAX daemon's dense- and continuous-lane ones, its KV-tier
+        gauges and the split lanes' sections (the speculative and
+        sharded gauges arrive with those lanes)."""
         self.spans.flush()            # heartbeat cadence, off the
         payload = dataclasses.asdict(self.stats)      # wake path
         payload["spans_obs"] = self.spans.counters()
@@ -1528,6 +1686,23 @@ class Completer:
                     tenants.setdefault(str(t), {})["prefix_pages"] = pages
             if tenants and "tenants" not in payload:
                 payload["tenants"] = tenants
+        if self.kv_tier is not None:
+            tier = self.kv_tier
+            payload["tier_pages"] = len(tier)
+            payload["tier_mb"] = round(tier.bytes_held() / 2**20, 3)
+            payload["tier_spills"] = tier.spills
+            payload["tier_spill_failures"] = tier.spill_failures
+            payload["tier_demotions"] = tier.demotions
+            payload["tier_readmits"] = tier.readmits
+            payload["tier_readmit_failures"] = tier.readmit_failures
+            payload["tier_capacity_drops"] = tier.capacity_drops
+            payload["tier_restored"] = self._tier_restore[0]
+            if self._tier_restore[1] not in ("", "off"):
+                payload["tier_restore_reason"] = self._tier_restore[1]
+            if pc is not None:
+                payload["tier_demoted"] = pc.demoted_pages()
+            if self._tier_store is not None:
+                payload["tier_snapshot_epoch"] = self._tier_store.epoch
         if cache is not None:
             # the pool's storage dtype and the bytes of its device
             # tensors (values + scales)
@@ -1539,8 +1714,13 @@ class Completer:
             payload["faults"] = faults.stats()
         payload["compile_events"] = DEVTIME.compile_events(self.LANE)
         devtime = DEVTIME.heartbeat_section(self.LANE)
+        if self.LANE != "completer":
+            # a split lane's programs register under "completer.*"
+            payload["compile_events"] += DEVTIME.compile_events("completer")
+            devtime.update(DEVTIME.heartbeat_section("completer"))
         if devtime:
             payload["devtime"] = devtime
+        self._lane_payload(payload)
         DEVTIME.flush(self.store)
         if tracer.enabled:
             P.attach_trace_sections(payload, tracer, self.recorder,
@@ -1609,16 +1789,6 @@ class Completer:
 # flags of the JAX daemon whose lanes the port does not have yet: each
 # refuses to start rather than serve another way (see ROADMAP.md)
 _NOT_PORTED = (
-    ("phase", "--phase prefill|decode",
-     "Queue A, disaggregated lanes: engine/disagg.py"),
-    ("kv_tier_pages", "--kv-tier-pages",
-     "Queue A, KV tier: the host-DRAM tier of engine/kv_tier.py"),
-    ("kv_tier_persist", "--kv-tier-persist",
-     "Queue A, KV tier: the host-DRAM tier of engine/kv_tier.py"),
-    ("quantized", "--quantized",
-     "Queue A, weight quantization: models/quant.py"),
-    ("weights_int8", "--weights-int8 / --weights int8",
-     "Queue A, weight quantization: models/quant.py"),
     ("draft_weights", "--draft-weights",
      "Queue A, speculative decoding: models/speculative.py"),
     ("draft_layers", "--draft-layers",
@@ -1634,10 +1804,8 @@ _NOT_PORTED = (
 
 def _refuse_not_ported(args) -> None:
     """SystemExit naming the first not-yet-ported option that is set
-    (`--phase unified`, `--tp 1` and `--ep 1` name this very lane)."""
-    this_lane = {"phase": "unified", "tp": 1, "ep": 1}
-    if args.weights == "int8":       # the JAX daemon's --weights-int8
-        args.weights_int8 = True
+    (`--tp 1` and `--ep 1` name this very lane)."""
+    this_lane = {"tp": 1, "ep": 1}
     for dest, flag, where in _NOT_PORTED:
         if getattr(args, dest) not in (None, False, this_lane.get(dest)):
             raise SystemExit(
@@ -1683,7 +1851,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="decoder checkpoint: .gguf (geometry, tokenizer "
                          "and chat template all from the file) or "
                          ".safetensors (HF llama naming; default "
-                         "geometry, byte-level tokenizer)")
+                         "geometry, byte-level tokenizer).  The literal "
+                         "'int8' means no checkpoint: seeded-random "
+                         "weights held per-output-channel int8 "
+                         "(--weights-int8 with no path)")
     ap.add_argument("--n-ctx", type=int, default=None,
                     help="context window / KV-cache length (default: "
                          "a .gguf's context length, else 2048)")
@@ -1703,6 +1874,25 @@ def main(argv: list[str] | None = None) -> int:
                          "live batch at chunk boundaries over the "
                          "block-paged KV pool (run_continuous; kernel K5 "
                          "on every decode step)")
+    ap.add_argument("--phase", choices=("unified", "prefill", "decode"),
+                    default="unified",
+                    help="disaggregated serving (engine/disagg.py): "
+                         "'prefill' runs only the prompt prefill and "
+                         "hands each row's pages off at DECODE_READY; "
+                         "'decode' adopts handoffs at chunk edges and "
+                         "runs only paged decode.  Both imply "
+                         "--continuous.  Default: the unified lane")
+    ap.add_argument("--quantized", action="store_true",
+                    help="int8 weight residency: the attention/MLP "
+                         "projections stay on the card as Q8_0-geometry "
+                         "int8 + per-block f32 scales (models/quant.py; "
+                         "dequantized before the product)")
+    ap.add_argument("--weights-int8", action="store_true",
+                    help="per-output-channel int8 weight residency "
+                         "(models/quant.py ChannelQuantDense): the "
+                         "product runs on the int8 codes with an f32 "
+                         "result and one scale per output column after "
+                         "it.  Mutually exclusive with --quantized")
     ap.add_argument("--page-size", type=int, default=128,
                     help="KV pool page size in tokens (continuous lane)")
     ap.add_argument("--pool-pages", type=int, default=None,
@@ -1733,6 +1923,20 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--prefix-quota", default=None,
                     help="per-tenant prefix-cache page quotas, "
                          "TENANT:PAGES[,TENANT:PAGES...]")
+    ap.add_argument("--kv-tier-pages", type=int, default=0,
+                    help="host-DRAM KV spill tier capacity in pool pages "
+                         "(engine/kv_tier.py): evicted zero-ref prefix "
+                         "pages demote to host RAM and a later hit "
+                         "readmits them instead of re-prefilling "
+                         "(default 0: off)")
+    ap.add_argument("--kv-tier-persist", nargs="?", const="auto",
+                    default=None,
+                    help="checkpoint the radix index + host-tier pages "
+                         "into a file-backed store segment so restarts "
+                         "attach WARM (torn snapshots fall back cold, "
+                         "typed in the heartbeat).  The optional value "
+                         "names the segment; the bare flag derives "
+                         "<store>-kvtier.  Replica 0 writes, all load")
     ap.add_argument("--queue-high-water", type=int, default=None,
                     help="multi-tenant QoS: max waiting backlog — "
                          "overflow is claimed and READY-flipped with "
@@ -1746,19 +1950,21 @@ def main(argv: list[str] | None = None) -> int:
                          "TENANT:W[,TENANT:W...] (unlisted weigh 1)")
     not_ported = ap.add_argument_group(
         "not yet ported (the JAX daemon's; each refuses to start)")
-    for flag in ("--quantized", "--weights-int8"):
-        not_ported.add_argument(flag, action="store_true")
     for flag in ("--tp", "--ep", "--draft-layers", "--gamma"):
         not_ported.add_argument(flag, type=int, default=None)
     not_ported.add_argument("--spec-min-acceptance", type=float,
                             default=None)
-    for flag in ("--phase", "--draft-weights"):
-        not_ported.add_argument(flag, default=None)
-    not_ported.add_argument("--kv-tier-pages", type=int, default=0)
-    not_ported.add_argument("--kv-tier-persist", nargs="?", const="auto",
-                            default=None)
+    not_ported.add_argument("--draft-weights", default=None)
     args = ap.parse_args(argv)
     _refuse_not_ported(args)
+    if args.weights == "int8":
+        args.weights = None
+        args.weights_int8 = True
+    if args.quantized and args.weights_int8:
+        raise SystemExit(
+            "--quantized and --weights-int8 are mutually exclusive: "
+            "both claim the attention/MLP kernels (Q8_0 blocks vs "
+            "per-output-channel) — pick one weight residency")
 
     logging.basicConfig(level=logging.INFO)
     from ..models import (CompletionModel, DecoderConfig, GgufFile,
@@ -1791,10 +1997,19 @@ def main(argv: list[str] | None = None) -> int:
         # system\n\nprompt concatenation
         template = "none"
         log.info("--template auto with no GGUF metadata: using 'none'")
+    if args.quantized:
+        cfg = dataclasses.replace(cfg, quantized=True)
+    if args.weights_int8:
+        fault("completer.weight_quant")
+        cfg = dataclasses.replace(cfg, weights_int8=True)
     model = CompletionModel(cfg, weights=args.weights, top_p=args.top_p,
                             temp=args.temp, device=args.device)
     store = Store.open(args.store, persistent=args.persistent)
-    comp = Completer(store, model=model, tokenizer=tokenizer,
+    cls = Completer
+    if args.phase != "unified":
+        from .disagg import DecodeLane, PrefillLane
+        cls = PrefillLane if args.phase == "prefill" else DecodeLane
+    comp = cls(store, model=model, tokenizer=tokenizer,
                      max_new_tokens=args.max_new_tokens,
                      template=template, batch_cap=args.batch_cap,
                      page_size=args.page_size, pool_pages=args.pool_pages,
@@ -1807,11 +2022,16 @@ def main(argv: list[str] | None = None) -> int:
                      prefix_cache=not args.no_prefix_cache,
                      prefix_cache_pages=args.prefix_cache_pages,
                      prefix_quotas=parse_tenant_quotas(args.prefix_quota),
+                     kv_tier_pages=args.kv_tier_pages,
+                     kv_tier_persist=(f"{args.store}-kvtier"
+                                      if args.kv_tier_persist == "auto"
+                                      else args.kv_tier_persist),
                      replica=args.replica)
     comp.attach()
+    continuous = args.continuous or args.phase != "unified"
     if args.warmup:
         t0 = time.monotonic()
-        if args.continuous and comp._paged_ok():
+        if continuous and comp._paged_ok():
             # the continuous lane only ever runs the paged program set
             comp.warmup_paged()
         else:
@@ -1825,7 +2045,7 @@ def main(argv: list[str] | None = None) -> int:
         log.info("oneshot serviced %d completions", n)
         return 0
     try:
-        if args.continuous:
+        if continuous:
             comp.run_continuous(idle_timeout_ms=args.idle_timeout_ms)
         else:
             comp.run(idle_timeout_ms=args.idle_timeout_ms)

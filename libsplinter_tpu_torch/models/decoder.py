@@ -30,7 +30,10 @@ the JAX package donates them to each program.
 Weights load from a llama-family GGUF file (models/gguf.py) or
 safetensors file (the port's own reader), bridge from the JAX package's
 flax tree (``params_from_jax``), or are seeded random draws from an
-explicit torch.Generator.
+explicit torch.Generator.  ``DecoderConfig.quantized`` and
+``weights_int8`` keep the attention and MLP projections on the card as
+int8 codes + f32 scales (models/quant.py), a float checkpoint being
+quantized at load.
 """
 from __future__ import annotations
 
@@ -50,6 +53,8 @@ from ..ops.paged_attention import (INT4_QMAX, pack_int4, paged_attention,
 from ..utils.device import DeviceFuture, resolve_device
 from .encoder import (_apply_rotary, _rotary_angles, read_safetensors,
                       state_dict_from_flax, write_safetensors)
+from .quant import (QUANT_LEAVES, ChannelQuantDense, QuantDense,
+                    quantize_state_dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +69,16 @@ class DecoderConfig:
     rope_base: float = 10000.0
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16   # activation dtype
+    # int8 blockwise weight residency (models/quant.py QuantDense): the
+    # attention + MLP projections live on the card as Q8_0-geometry
+    # int8 + per-block f32 scales.  Embeddings, norms and the LM head
+    # stay float.
+    quantized: bool = False
+    # per-OUTPUT-channel int8 weight residency (models/quant.py
+    # ChannelQuantDense): the product runs on the int8 codes with an f32
+    # result, one f32 scale per output column after it.  Mutually
+    # exclusive with `quantized` (one residency per model).
+    weights_int8: bool = False
     # prefill chunks at/above this width attend through kernel K4: long
     # prompts stop materialising (B, H, S, T) logits.  0 = off.
     flash_min_seq: int = 512
@@ -440,15 +455,26 @@ class RMSNorm(nn.Module):
         return (y * self.weight).to(self.dtype)
 
 
+def _proj(cfg: DecoderConfig, din: int, dout: int) -> nn.Module:
+    """The decoder's projection: a bias-free Linear, QuantDense for the
+    Q8_0 block residency, or ChannelQuantDense for the per-output-channel
+    one (--weights-int8)."""
+    if cfg.weights_int8:
+        return ChannelQuantDense(din, dout, cfg.dtype)
+    if cfg.quantized:
+        return QuantDense(din, dout, cfg.dtype)
+    return nn.Linear(din, dout, bias=False)
+
+
 class CausalAttention(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.head_dim
-        self.q = nn.Linear(cfg.hidden, cfg.heads * d, bias=False)
-        self.k = nn.Linear(cfg.hidden, cfg.kv_heads * d, bias=False)
-        self.v = nn.Linear(cfg.hidden, cfg.kv_heads * d, bias=False)
-        self.out = nn.Linear(cfg.heads * d, cfg.hidden, bias=False)
+        self.q = _proj(cfg, cfg.hidden, cfg.heads * d)
+        self.k = _proj(cfg, cfg.hidden, cfg.kv_heads * d)
+        self.v = _proj(cfg, cfg.hidden, cfg.kv_heads * d)
+        self.out = _proj(cfg, cfg.heads * d, cfg.hidden)
 
     def forward(self, x, cache_kv, pos: int, start, rotary, lengths=None,
                 tables=None, n_valid: int | None = None):
@@ -549,9 +575,9 @@ class DecoderLayer(nn.Module):
         self.attn = CausalAttention(cfg)
         self.ln_attn = RMSNorm(cfg.hidden, cfg.rms_eps, cfg.dtype)
         self.ln_mlp = RMSNorm(cfg.hidden, cfg.rms_eps, cfg.dtype)
-        self.gate = nn.Linear(cfg.hidden, cfg.mlp_dim, bias=False)
-        self.up = nn.Linear(cfg.hidden, cfg.mlp_dim, bias=False)
-        self.down = nn.Linear(cfg.mlp_dim, cfg.hidden, bias=False)
+        self.gate = _proj(cfg, cfg.hidden, cfg.mlp_dim)
+        self.up = _proj(cfg, cfg.hidden, cfg.mlp_dim)
+        self.down = _proj(cfg, cfg.mlp_dim, cfg.hidden)
 
     def forward(self, x, cache_kv, pos, start, rotary, lengths=None,
                 tables=None, n_valid=None):
@@ -613,9 +639,12 @@ class Decoder(nn.Module):
 def init_params(module: Decoder, generator: torch.Generator) -> None:
     """Seeded random init drawn from `generator`: Dense kernels
     normal(0, 1/fan_in) variance, embeddings normal(0, 1/hidden)
-    variance, RMSNorm scales at 1."""
+    variance, RMSNorm scales at 1; int8-resident projections draw codes
+    uniform in [-127, 127] under scales 1 / (127 sqrt(fan_in))."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, (QuantDense, ChannelQuantDense)):
+            m.init_weights(generator)
+        elif isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
                              generator=generator)
         elif isinstance(m, nn.Embedding):
@@ -627,7 +656,9 @@ def init_params(module: Decoder, generator: torch.Generator) -> None:
 
 def params_from_jax(flax_params, cfg: DecoderConfig) -> dict:
     """The weight bridge: a flax decoder tree -> this Decoder's
-    state_dict (every flax leaf has a module twin of the same path)."""
+    state_dict (every flax leaf has a module twin of the same path; the
+    quantized leaf sets {q, scale} and {wq, wscale} keep their int8 and
+    f32 layouts)."""
     return state_dict_from_flax(flax_params)
 
 
@@ -707,7 +738,10 @@ class CompletionModel:
                  kv_dtype: str | None = None,
                  suffix_buckets: tuple[int, ...] = (16, 64)):
         """params: a Decoder state_dict (e.g. from params_from_jax);
-        weights: a .gguf or .safetensors checkpoint path.  device: "cuda"
+        weights: a .gguf or .safetensors checkpoint path.  With
+        cfg.quantized or cfg.weights_int8 a float state_dict is
+        quantized at load (quant.quantize_state_dict, idempotent), so
+        checkpoints of either kind serve int8-resident.  device: "cuda"
         (default) or "cpu".  kv_dtype: init_paged's default pool
         storage (None = the activation dtype).  suffix_buckets: the pad
         buckets of paged_append_prefill's stacks (longer suffixes loop
@@ -724,12 +758,20 @@ class CompletionModel:
             # window) must still have a shape to land in
             self.buckets = self.buckets + (cfg.max_len,)
         self.top_p, self.temp = top_p, temp
+        if cfg.quantized and cfg.weights_int8:
+            raise ValueError(
+                "quantized (Q8_0 blocks) and weights_int8 (per-channel) "
+                "are two residencies for the same projections — pick one")
         if params is None and weights is not None:
             if weights.endswith(".gguf"):
                 from .gguf import load_decoder_params
                 params = load_decoder_params(weights, cfg)
             else:
                 params = load_safetensors_params(weights, cfg)
+        if params is not None and (cfg.quantized or cfg.weights_int8):
+            params = quantize_state_dict(
+                params, QUANT_LEAVES,
+                mode="channel" if cfg.weights_int8 else "block")
         with torch.device(self.device):
             module = Decoder(cfg)
         if params is None:
@@ -739,7 +781,8 @@ class CompletionModel:
         else:
             module.load_state_dict(params)
         # projections and the embedding table in the activation dtype;
-        # the norms and the LM head stay f32 (flax's param/compute dtypes)
+        # the norms and the LM head stay f32 (flax's param/compute
+        # dtypes), int8-resident projections their codes and f32 scales
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)) \
                     and m is not module.lm_head:
@@ -755,6 +798,10 @@ class CompletionModel:
                                                 self._paged_chunk)
         self._cow_fn = DEVTIME.register("completer.cow_copy",
                                         self._cow_copy)
+        self._export_fn = DEVTIME.register("completer.page_export",
+                                           self._page_export)
+        self._import_fn = DEVTIME.register("completer.page_import",
+                                           self._page_import)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed + 1)
         self._cache = None
@@ -1330,6 +1377,180 @@ class CompletionModel:
                 self._cow_fn(cache, src, dst)
                 cache._decref(src)
                 cache._decref(dst)
+
+    # -- the page wire --------------------------------------------------------
+    #
+    # The host-DRAM KV tier demotes and readmits pool pages through it
+    # (engine/kv_tier.py), and the disaggregated lanes hand rows from the
+    # prefill pool to the decode pool through it (engine/disagg.py).  A
+    # wire page is one pool page across every layer: the k stack then the
+    # v stack, each (layers, KH, page, D_store) in the pool's own storage
+    # (bf16 as its two raw bytes, int4 as the packed bytes); a quantized
+    # pool's scales ride apart as (layers, KH) f32 for k, then for v.  The
+    # layout is the JAX package's, so a JAX prefill lane's handoff adopts
+    # here and tier snapshots of either package carry the same geometry.
+    # One gather or scatter per page, as in the JAX package.
+
+    def _page_wire_dtype(self, cache: PagedKVCache) -> str:
+        """The pool's storage dtype under numpy's name — "bfloat16",
+        "float32", "int8", or "uint8" for int4-packed pools — as the JAX
+        model's str(np.dtype) reads (tier snapshots record it)."""
+        if cache.quantized:
+            return "uint8" if cache.packed else "int8"
+        return str(cache.k_pools[0].dtype).removeprefix("torch.")
+
+    def _page_wire_shape(self, cache: PagedKVCache) -> tuple[int, ...]:
+        """One side's stacked wire-page shape, read from the pool (last
+        axis head_dim / 2 for int4-packed pools)."""
+        return (self.cfg.layers, self.cfg.kv_heads, cache.page,
+                int(cache.k_pools[0].shape[3]))
+
+    def page_wire_bytes(self, cache: PagedKVCache) -> int:
+        """Bytes one exported page occupies on the wire (k + v values
+        across every layer; quantized scales ride apart)."""
+        return (2 * cache.k_pools[0].element_size()
+                * math.prod(self._page_wire_shape(cache)))
+
+    @torch.no_grad()
+    def _page_export(self, cache: PagedKVCache, bid: int):
+        """Pool page `bid` across every layer: (2 layers, KH, page, D)
+        values, k layers first, and for quantized pools (2 layers, KH)
+        f32 scales."""
+        vals = torch.stack([p[bid] for p in (*cache.k_pools,
+                                             *cache.v_pools)])
+        if not cache.quantized:
+            return vals, None
+        return vals, torch.stack([s[bid] for s in (*cache.k_scales,
+                                                   *cache.v_scales)])
+
+    @torch.no_grad()
+    def _page_import(self, cache: PagedKVCache, bid: int, vals, scales):
+        """Scatter one wire page's stacks (as _page_export returns them)
+        into pool page `bid`, in place."""
+        n_layers = self.cfg.layers
+        for li in range(n_layers):
+            cache.k_pools[li][bid] = vals[li]
+            cache.v_pools[li][bid] = vals[n_layers + li]
+            if scales is not None:
+                cache.k_scales[li][bid] = scales[li]
+                cache.v_scales[li][bid] = scales[n_layers + li]
+        return vals
+
+    def export_page_bytes(self, cache: PagedKVCache, bid: int
+                          ) -> tuple[bytes, bytes | None]:
+        """Host copy of ONE pool page: (k stack then v stack bytes, the
+        scale stacks' bytes or None for float pools) — the tier's
+        demotion copy and one page of a handoff."""
+        vals, scales = self._export_fn(cache, int(bid))
+        page = _host(vals.view(torch.uint8), "completer.page_export")
+        return (page.tobytes(),
+                None if scales is None else scales.cpu().numpy().tobytes())
+
+    def export_row_pages(self, cache: PagedKVCache, row: int
+                         ) -> tuple[list[bytes], list[bytes | None]]:
+        """Host copies of every page `row`'s table maps, in table order:
+        (page bytes, scale bytes or None) lists.  The partial last page
+        is exported whole — adoption masks by length, as K5 does."""
+        pages: list[bytes] = []
+        scales: list[bytes | None] = []
+        for p_idx in range(len(cache._owned[row])):
+            buf, sbuf = self.export_page_bytes(
+                cache, int(cache.tables[row, p_idx]))
+            pages.append(buf)
+            scales.append(sbuf)
+        return pages, scales
+
+    def _wire_to_device(self, cache: PagedKVCache, buf: bytes,
+                        sbuf: bytes | None):
+        """One wire page's bytes as device stacks shaped for
+        _page_import (the sizes were checked by the caller)."""
+        n_layers, kh = self._page_wire_shape(cache)[:2]
+        shape = (2 * n_layers, *self._page_wire_shape(cache)[1:])
+        vals = self._h2d(np.frombuffer(buf, np.uint8).copy()).view(
+            cache.k_pools[0].dtype).reshape(shape)
+        if sbuf is None:
+            return vals, None
+        return vals, self._h2d(np.frombuffer(sbuf, np.float32).copy()
+                               ).reshape(2 * n_layers, kh)
+
+    def _scale_wire_bytes(self) -> int:
+        """Bytes of one side's (layers, KH) f32 scale stack."""
+        return self.cfg.layers * self.cfg.kv_heads * 4
+
+    def import_page_bytes(self, cache: PagedKVCache, bid: int,
+                          buf: bytes, sbuf: bytes | None = None) -> None:
+        """Scatter one wire page's host bytes into pool page `bid` — the
+        tier's READMISSION: a host-DRAM hit becomes this copy plus a
+        block-table write instead of a re-prefill."""
+        want = self.page_wire_bytes(cache)
+        if len(buf) != want:
+            raise ValueError(
+                f"tier page holds {len(buf)} bytes, expected {want}")
+        if cache.quantized:
+            sn = self._scale_wire_bytes()
+            if sbuf is None or len(sbuf) != 2 * sn:
+                raise ValueError(
+                    f"tier scales hold {0 if sbuf is None else len(sbuf)} "
+                    f"bytes, expected {2 * sn}")
+        else:
+            sbuf = None
+        self._import_fn(cache, int(bid),
+                        *self._wire_to_device(cache, buf, sbuf))
+
+    def paged_adopt_row(self, cache: PagedKVCache, row: int, length: int,
+                        pages: list[bytes],
+                        scales: list[bytes | None] | None = None) -> bool:
+        """Seat a handed-off row into THIS pool: grow its table to cover
+        `length` tokens (all or nothing), scatter each wire page into its
+        block, set the row's length.  Returns False — nothing imported —
+        when the pool cannot hold the row (adoption backpressure: the
+        row stays DECODE_READY).  The caller reserves the row's worst
+        case (prompt + max_new) afterwards, as for paged_prefill_row."""
+        need = cache.pages_needed(length)
+        if len(pages) < need:
+            raise ValueError(
+                f"handoff for row {row} carries {len(pages)} pages, "
+                f"{need} needed to cover {length} tokens")
+        if not cache.ensure(row, length):
+            return False
+        want = self.page_wire_bytes(cache)
+        sn = self._scale_wire_bytes()
+        for p_idx in range(need):
+            buf = pages[p_idx]
+            if len(buf) != want:
+                raise ValueError(
+                    f"wire page {p_idx} holds {len(buf)} bytes, "
+                    f"expected {want}")
+            sbuf = None
+            if cache.quantized:
+                sbuf = (scales or [None] * need)[p_idx] or b""
+                if len(sbuf) != 2 * sn:
+                    raise ValueError(
+                        f"wire scales {p_idx} hold {len(sbuf)} bytes, "
+                        f"expected {2 * sn}")
+            self._import_fn(cache, int(cache.tables[row, p_idx]),
+                            *self._wire_to_device(cache, buf, sbuf))
+        cache.lengths[row] = int(length)
+        return True
+
+    def warmup_handoff(self, cache: PagedKVCache, *, export: bool = True,
+                       adopt: bool = True) -> None:
+        """Run the wire's export and import once on a scratch page, so
+        their first serving call adds no new shape (PyTorch has nothing
+        to compile; the JAX package's signature is kept)."""
+        with DEVTIME.warmup_phase():
+            bid = cache._alloc_page()
+            try:
+                if export:
+                    self.export_page_bytes(cache, bid)
+                if adopt:
+                    zeros = bytes(self.page_wire_bytes(cache))
+                    self.import_page_bytes(
+                        cache, bid, zeros,
+                        bytes(2 * self._scale_wire_bytes())
+                        if cache.quantized else None)
+            finally:
+                cache._decref(bid)
 
 
 # ------------------------------------------------------ checkpoint loading

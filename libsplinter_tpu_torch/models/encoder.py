@@ -14,7 +14,9 @@ package's flax encoder:
     the projections and embeddings compute in ``cfg.dtype``, so a
     trainer (parallel/train.py) updates f32 master weights while the
     forward runs in bf16.  Serving casts the module's matmul weights
-    to bf16 once, which makes the per-call cast a no-op.
+    to bf16 once, which makes the per-call cast a no-op;
+  - ``weights_int8`` keeps the attention and MLP projections on the card
+    as per-output-channel int8 codes + f32 scales (models/quant.py).
 
 Buckets at or above ``flash_min_seq`` attend through kernel K1
 (ops/flash_attention.py); shorter ones through the plain masked
@@ -40,6 +42,8 @@ from torch import nn
 from ..obs.devtime import DEVTIME
 from ..ops.flash_attention import _mha_plain, flash_attention
 from ..utils.device import DeviceFuture, resolve_device
+from .quant import (ENCODER_QUANT_LEAVES, ChannelQuantDense,
+                    quantize_state_dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +62,10 @@ class EncoderConfig:
     # (ops/flash_attention.py): no device-quadratic logits, so long
     # buckets keep real batch sizes.  0 disables (always plain).
     flash_min_seq: int = 512
-    # per-output-channel int8 weight residency: not yet ported
+    # per-output-channel int8 weight residency (models/quant.py
+    # ChannelQuantDense, shared with the decoder's --weights-int8): the
+    # attention and MLP projections keep int8 codes + f32 scales on the
+    # card, their biases float
     weights_int8: bool = False
 
     @classmethod
@@ -140,16 +147,21 @@ class Embed(nn.Embedding):
         return F.embedding(ids, self.weight.to(self.dtype))
 
 
+def _dense(cfg: EncoderConfig, din: int, dout: int) -> nn.Module:
+    """The encoder's projection: Dense, or the per-output-channel int8
+    residency when cfg.weights_int8 (same module name either way, so
+    state_dicts convert in place via quant.quantize_state_dict)."""
+    if cfg.weights_int8:
+        return ChannelQuantDense(din, dout, cfg.dtype, use_bias=True)
+    return Dense(din, dout, cfg.dtype)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.weights_int8:
-            raise NotImplementedError(
-                "weights_int8 (per-channel int8 encoder weights) is not "
-                "yet ported to the torch package")
         self.cfg = cfg
-        self.qkv = Dense(cfg.hidden, 3 * cfg.hidden, cfg.dtype)
-        self.out = Dense(cfg.hidden, cfg.hidden, cfg.dtype)
+        self.qkv = _dense(cfg, cfg.hidden, 3 * cfg.hidden)
+        self.out = _dense(cfg, cfg.hidden, cfg.hidden)
 
     def forward(self, x, mask, rotary=None):
         cfg = self.cfg
@@ -176,9 +188,9 @@ class Mlp(nn.Module):
         super().__init__()
         self.variant = cfg.variant
         if cfg.variant == "nomic":
-            self.gate = Dense(cfg.hidden, cfg.mlp_dim, cfg.dtype)
-        self.up = Dense(cfg.hidden, cfg.mlp_dim, cfg.dtype)
-        self.down = Dense(cfg.mlp_dim, cfg.hidden, cfg.dtype)
+            self.gate = _dense(cfg, cfg.hidden, cfg.mlp_dim)
+        self.up = _dense(cfg, cfg.hidden, cfg.mlp_dim)
+        self.down = _dense(cfg, cfg.mlp_dim, cfg.hidden)
 
     def forward(self, x):
         if self.variant == "nomic":
@@ -258,9 +270,12 @@ def init_params(module: Encoder, generator: torch.Generator) -> None:
     """Seeded random init drawn from `generator` (on the module's
     device): flax's defaults — Dense kernels normal(0, 1/fan_in)
     variance, zero biases, embeddings normal(0, 1/hidden) variance,
-    layer norms at identity."""
+    layer norms at identity; int8-resident projections draw their codes
+    (quant.ChannelQuantDense.init_weights)."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, ChannelQuantDense):
+            m.init_weights(generator)
+        elif isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
                              generator=generator)
             m.bias.zero_()
@@ -276,12 +291,23 @@ def state_dict_from_flax(flax_params) -> dict:
     """A flax tree (``{"params": ...}`` or the inner dict; leaves numpy
     or array-likes) -> a state_dict of f32 tensors named by the tree's
     paths.  Dense kernels transpose from (in, out) to (out, in);
-    `embedding` and norm `scale` leaves become `weight`."""
+    `embedding` and norm `scale` leaves become `weight`.  The int8
+    residencies' leaf sets ({q, scale}, {wq, wscale} and {wq, wscale,
+    bias}; models/quant.py) keep their names, layouts and dtypes (int8
+    codes, f32 scales)."""
     tree = flax_params.get("params", flax_params)
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path):
         for name, val in node.items():
+            if isinstance(val, dict) and _quant_leaves(val):
+                for leaf, arr in val.items():
+                    arr = np.asarray(arr)
+                    arr = arr.astype(np.int8 if leaf in ("q", "wq")
+                                     else np.float32)
+                    out[".".join(path + [name, leaf])] = torch.from_numpy(
+                        np.ascontiguousarray(arr))
+                continue
             if isinstance(val, dict):
                 walk(val, path + [name])
                 continue
@@ -295,6 +321,13 @@ def state_dict_from_flax(flax_params) -> dict:
 
     walk(tree, [])
     return out
+
+
+def _quant_leaves(node: dict) -> bool:
+    """True for a quantized projection's leaf set: a bare `q` or `wq`
+    array (the attention's `q` PROJECTION is a dict)."""
+    return any(k in node and not isinstance(node[k], dict)
+               for k in ("q", "wq"))
 
 
 def params_from_jax(flax_params, cfg: EncoderConfig) -> dict:
@@ -618,11 +651,9 @@ class EmbeddingModel:
         L2-normalized) output on the device and fetch 2 bytes per
         component; "int8" fetches 1 byte per component at a FIXED x127
         scale (unit vectors need no per-vector scale).  materialize()
-        always hands the caller f32."""
-        if cfg.weights_int8:
-            raise NotImplementedError(
-                "weights_int8 (per-channel int8 encoder weights) is not "
-                "yet ported to the torch package")
+        always hands the caller f32.  cfg.weights_int8 keeps the
+        projections int8-resident; a float state_dict is converted at
+        load (quant.quantize_state_dict, idempotent)."""
         if fetch_dtype not in _WIRES:
             raise ValueError(f"fetch_dtype {fetch_dtype!r} not in "
                              f"(None, 'f16', 'bf16', 'int8')")
@@ -644,6 +675,9 @@ class EmbeddingModel:
                 params = load_safetensors_params(weights, cfg)
         with torch.device(self.device):
             module = Encoder(cfg)
+        if params is not None and cfg.weights_int8:
+            params = quantize_state_dict(params, ENCODER_QUANT_LEAVES,
+                                         mode="channel")
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
@@ -651,7 +685,8 @@ class EmbeddingModel:
         else:
             module.load_state_dict(params)
         # matmul weights and embeddings in the activation dtype; layer
-        # norms keep f32 parameters (flax's param_dtype)
+        # norms keep f32 parameters (flax's param_dtype), int8-resident
+        # projections their codes and f32 scales
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
                 m.to(cfg.dtype)

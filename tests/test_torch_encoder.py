@@ -175,9 +175,6 @@ def test_safetensors_reader_bf16(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tenc.EmbeddingModel(tenc.EncoderConfig.tiny(weights_int8=True),
-                            device="cpu")
     with pytest.raises(FileNotFoundError):     # .gguf goes to the loader
         tenc.EmbeddingModel(tenc.EncoderConfig.tiny(),
                             weights=str(tmp_path / "m.gguf"), device="cpu")

@@ -21,7 +21,8 @@ VERBATIM = ("_native.py", "store.py", "utils/faults.py",
             "engine/protocol.py", "engine/qos.py", "engine/resident.py",
             "engine/client.py", "engine/prefix_cache.py", "obs/hist.py",
             "obs/recorder.py", "obs/prom.py", "obs/spans.py",
-            "models/gguf_writer.py")
+            "models/gguf_writer.py", "engine/kv_tier.py",
+            "engine/disagg.py")
 
 # the parts of models/gguf.py copied unchanged from the JAX package's:
 # the container reader, every ggml dequantizer and the tokenizers (the
@@ -34,6 +35,11 @@ GGUF_COPIED = ("GgufError", "TensorInfo", "GgufFile", "_dequant_q8_0",
                "_SpecialTokens", "load_tokenizer", "UnigramTokenizer",
                "_as_gguf", "_MaybeClose", "_gpt2_byte_map",
                "ByteBpeTokenizer")
+
+# the numpy quantizers of models/quant.py, copied unchanged (the torch
+# modules and the tree walkers are the port's own)
+QUANT_COPIED = ("quantize_kernel", "dequantize_kernel",
+                "quantize_channel_kernel", "dequantize_channel_kernel")
 
 
 def _sources():
@@ -98,6 +104,26 @@ def test_gguf_copied_parts_stay_verbatim(name):
     from libsplinter_tpu_torch.models import gguf as port
     assert inspect.getsource(getattr(port, name)) == \
         inspect.getsource(getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("name", QUANT_COPIED)
+def test_quant_copied_parts_stay_verbatim(name):
+    import inspect
+
+    from libsplinter_tpu.models import quant as ref
+
+    from libsplinter_tpu_torch.models import quant as port
+    assert inspect.getsource(getattr(port, name)) == \
+        inspect.getsource(getattr(ref, name)), name
+
+
+def test_quant_constants_equal():
+    """The Q8_0 block width and the leaf sets each model quantizes."""
+    from libsplinter_tpu.models import quant as ref
+
+    from libsplinter_tpu_torch.models import quant as port
+    for name in ("QBLOCK", "QUANT_LEAVES", "ENCODER_QUANT_LEAVES"):
+        assert getattr(port, name) == getattr(ref, name), name
 
 
 def test_gguf_constants_equal():
