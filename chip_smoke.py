@@ -1,10 +1,11 @@
 """Drive the torch port's embed -> vector-commit -> search path, its
 dense completion lane, its continuous (block-paged) completion lane,
 the encoder's contrastive trainer, GGUF checkpoints opened cold by the
-embedder and the completer, and the completer's serving variants
+embedder and the completer, the completer's serving variants
 (int8-resident weights, the host-DRAM KV tier, the disaggregated
-prefill/decode lanes) on one NVIDIA GPU, with every CUDA kernel held
-against its plain PyTorch version.
+prefill/decode lanes), speculative decoding and a Mixtral-family MoE
+checkpoint on one NVIDIA GPU, with every CUDA kernel held against its
+plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -30,15 +31,17 @@ Phases (any failure exits non-zero and prints no result line):
      that see no key; K5 ragged paged attention over a 513-block pool
      at B=32 H=12 D=64 page 128 with seeded lengths, a dead row and a
      page-boundary row, over bf16, f32, int8 and int4 pools, GQA 12/4,
-     8 long live rows of 32, and a 64-token multi-query stack, each
+     8 long live rows of 32, a 64-token multi-query stack and the
+     speculative lane's verify stack (32 rows x gamma + 1 = 5), each
      case with its split count and also launched with f32 queries over
      f32 or quantized pools and held to 1e-5), with CUDA-event times of
      the kernel, the plain version and a PyTorch yardstick call the
      port never makes, beside the bound (the larger of bytes / 3.35
      TB/s and FLOPs / the card's peak for the input type).  K5 and its
-     yardstick are timed by replaying a CUDA graph of 20 calls: K5 takes
-     less device time than its wrapper's host work, so events around
-     eager calls would time the host (that pace is printed beside);
+     yardstick, and K4 and its yardstick, are timed by replaying a CUDA
+     graph of their calls: they take less device time than their
+     wrappers' host work, so events around eager calls would time the
+     host (that pace is printed beside);
   4. end to end: a file-backed store with 1,048,576 slots of 768-d
      vectors (~1,000,000 committed through the store's batch commit),
      the embedder at full Nomic-Embed-Text-v1.5 width (bf16, seeded
@@ -112,13 +115,35 @@ Phases (any failure exits non-zero and prints no result line):
      and each prompt's first decode step over adopted wire pages held
      against the same step over the pages it was prefilled into
      (cosine >= 0.999; bit-identical expected); the handoff MB and wall;
- 10. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+ 10. speculative: the same decoder, greedy, on the continuous lane at
+     its defaults, 16 of phase 9's prompts x 64 tokens, a self-draft of
+     its first 9 layers with gamma 4 (the acceptance floor off) against
+     the plain lane (prefix cache off: the paired pools have none), in
+     f32 (TF32 off) and bf16, the ids read back exactly: every first
+     divergence must be a near-tie of the plain lane's logits there
+     (f32: top-2 within 1e-4; bf16: within 4 bf16 ulps), K5 must run
+     the verify stack (S = 5), verified > proposed, and no page may be
+     held on either pool once the last request is READY; a demotion
+     drill (4 requests, floor 0.99: spec_demotions 1 in the heartbeat,
+     the plain target adopted with a fresh pool, all READY); a
+     DecoderConfig(layers=2) draft written by gguf_writer behind phase
+     8's file on the serial lane in f32 (greedy bytes equal the
+     target-only lane's) and through completer.main --draft-weights;
+ 11. moe: DecoderConfig() geometry with 8 experts, top-2, written as an
+     F16 Mixtral-family GGUF (router, stacked experts, expert_count)
+     on phase 8's vocab and chatml template (~1.06 GB), read back
+     bit-exact, served by completer.main --weights <file> --continuous
+     --template auto (8 requests x 64 tokens, greedy) with completions
+     byte-identical to an in-process moe_completion_model's on the same
+     file, and again with --quantized (experts resident 0.5625 x bf16);
+     the int8-expert model's first-step logits within 1e-5 of the float
+     model on the dequantized weights in f32;
+ 12. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
      (K5, by query tokens and by splits: a launch of more than one
      split runs the combine kernel too), 7 (K6), 8 (K1, K2, K4, K5
-     from GGUF weights) and 9 (K4, K5 on each variant's path), each
-     counted from 0 just before its path runs, phases 8 and 9 added to
-     the sums.
+     from GGUF weights) and 9-11 (K4, K5 on each path), each counted
+     from 0 just before its path runs, phases 8-11 added to the sums.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -642,8 +667,12 @@ def phase_causal(results):
             check(mworst <= 1.0, f"K4 keyless queries not the mean of V: "
                   f"{merr}, {mworst:.3f} of the limit")
             del diff, mdiff, lim, mlim
-            ms = cuda_ms(lambda: causal_flash_attention(q, kk, vv, pos,
-                                                        start), reps=5)
+            # the kernel's device time from graph replays, as K5's; the
+            # wrapper's own pace (events around eager calls) beside it
+            ms = graph_ms(lambda: causal_flash_attention(q, kk, vv, pos,
+                                                         start), reps=10)
+            wrapper_ms = cuda_ms(lambda: causal_flash_attention(
+                q, kk, vv, pos, start), reps=5)
             plain_ms = cuda_ms(lambda: causal_attention_plain(
                 q, kk.repeat_interleave(rep, dim=2),
                 vv.repeat_interleave(rep, dim=2), pos, start), reps=3)
@@ -654,21 +683,23 @@ def phase_causal(results):
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=rep > 1)
 
-            lib_ms = cuda_ms(sdpa, reps=5)
+            lib_ms = graph_ms(sdpa, reps=10)
             lib = sdpa().transpose(1, 2)
             lib_err = (lib.float() - got.float()).abs()[has_key].max().item()
             bms, by = _causal_bound(b, s, t, h, kh, d, pos, starts,
                                     q.element_size(), kind)
             rec = {"shape": _causal_shape(b, s, t, h, kh, pos, kind),
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+                   "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bms, "bound_by": by}
             log(f"K4 causal_fwd {rec['shape']}: err {err:.3g} (limit "
                 f"{limit}; worst {worst:.3f} of it), keyless rows "
                 f"{int(empty.sum())} = mean of V (err {merr:.3g}, "
-                f"{mworst:.3f} of the limit); kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (vs kernel on "
-                f"rows with keys: {lib_err:.3g}), bound {bms:.4f} ms "
-                f"({by}; {bms / ms:.1%} of it)")
+                f"{mworst:.3f} of the limit); kernel {ms:.4f} ms (graph "
+                f"replay; {wrapper_ms:.4f} ms a call through the wrapper), "
+                f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (graph "
+                f"replay; vs kernel on rows with keys: {lib_err:.3g}), "
+                f"bound {bms:.4f} ms ({by}; {bms / ms:.1%} of it)")
             results.setdefault("causal_fwd", []).append(rec)
             del q, kk, vv, got, ref32, kr, vr, mean, qt, kt, vt, lib
             torch.cuda.empty_cache()
@@ -680,8 +711,9 @@ def phase_causal(results):
 # [1, 2047] with a dead row (0) and a row ending on a page boundary.
 # The few-live case is the batch a decode step of `_step_costs` sees, 8
 # live rows and 24 dead, with the live rows long (1500-2047), where the
-# split over pages matters most.  The multi-query case is a suffix
-# prefill's bucket-64 stack on one row at length 700.
+# split over pages matters most.  The multi-query cases are a suffix
+# prefill's bucket-64 stack on one row at length 700 and the speculative
+# lane's verify stack, gamma + 1 = 5 tokens on each of the 32 rows.
 PAGED_MAIN = "B=32 S=1 H=12 KH=12 page=128 P=16 bf16"
 
 
@@ -705,6 +737,7 @@ PAGED_CASES = (
     (1, 12, "int4", _paged_lengths(32)),
     (1, 4, "bf16", _paged_lengths(32)),              # GQA 12/4
     (64, 12, "bf16", np.array([700])),               # multi-query stack
+    (5, 12, "bf16", _paged_lengths(32)),             # spec verify stack
 )
 
 
@@ -2250,11 +2283,16 @@ def _unigram_vocab(n, rng):
     return tokens, scores, types, words
 
 
-def _gguf_decoder_file(cfg, tmp, rng):
-    """DecoderConfig() from seeded weights as a llama GGUF: F16, with
-    layer 0's attention in Q8_0 and its MLP in Q4_0, a 32000-piece
-    unigram vocab and a chatml chat template.  Returns (path, write
-    seconds, the expected loaded state_dict, the vocab)."""
+def _gguf_decoder_file(cfg, tmp, rng, name="decoder-f16-q8-q4.gguf",
+                       mixed=True, seed=37):
+    """`cfg` from seeded weights (torch seed `seed`) as a llama GGUF in
+    `tmp`/`name`: F16, with layer 0's attention in Q8_0 and its MLP in
+    Q4_0 when `mixed`, a 32000-piece unigram vocab drawn from `rng` and
+    a chatml chat template.  A MoeDecoderConfig writes a Mixtral-family
+    file: each layer's router as blk.N.ffn_gate_inp, its stacked experts
+    as blk.N.ffn_{gate,up,down}_exps and the expert_count /
+    expert_used_count keys.  Returns (path, write seconds, the expected
+    loaded state_dict, the vocab's words)."""
     import torch
 
     from libsplinter_tpu_torch.models import gguf
@@ -2262,10 +2300,12 @@ def _gguf_decoder_file(cfg, tmp, rng):
     from libsplinter_tpu_torch.models.gguf_writer import (
         GGML_F16, GGML_Q4_0, GGML_Q8_0, kv_f32_array, kv_i32_array, kv_str,
         kv_str_array, kv_u32, quantize_q4_0, quantize_q8_0, write_gguf)
+    from libsplinter_tpu_torch.models.moe import MoeDecoder, MoeDecoderConfig
 
+    moe = isinstance(cfg, MoeDecoderConfig)
     with torch.device("cuda"):
-        src = Decoder(cfg)
-    init_params(src, torch.Generator(device="cuda").manual_seed(37))
+        src = MoeDecoder(cfg) if moe else Decoder(cfg)
+    init_params(src, torch.Generator(device="cuda").manual_seed(seed))
     state = {k: v.float().cpu().numpy() for k, v in src.state_dict().items()}
     del src
     top = {"tok_emb.weight": "token_embd.weight",
@@ -2274,24 +2314,32 @@ def _gguf_decoder_file(cfg, tmp, rng):
     per_layer = {"ln_attn": "attn_norm", "ln_mlp": "ffn_norm",
                  "attn.q": "attn_q", "attn.k": "attn_k", "attn.v": "attn_v",
                  "attn.out": "attn_output", "gate": "ffn_gate",
-                 "up": "ffn_up", "down": "ffn_down"}
+                 "up": "ffn_up", "down": "ffn_down",
+                 "moe.router": "ffn_gate_inp", "moe.gate_experts":
+                 "ffn_gate_exps", "moe.up_experts": "ffn_up_exps",
+                 "moe.down_experts": "ffn_down_exps"}
     quant = {"layer_0.attn.q.weight": GGML_Q8_0,
              "layer_0.attn.k.weight": GGML_Q8_0,
              "layer_0.attn.v.weight": GGML_Q8_0,
              "layer_0.attn.out.weight": GGML_Q8_0,
              "layer_0.gate.weight": GGML_Q4_0,
              "layer_0.up.weight": GGML_Q4_0,
-             "layer_0.down.weight": GGML_Q4_0}
+             "layer_0.down.weight": GGML_Q4_0} if mixed else {}
     tensors, expect = {}, {}
     for key, arr in state.items():
+        out = arr
         if key in top:
             gname = top[key]
         else:
             layer, rest = key.split(".", 1)
             gname = (f"blk.{layer.split('_')[1]}."
                      f"{per_layer[rest.removesuffix('.weight')]}.weight")
+            if rest.endswith("_experts"):
+                # the file's (E, out, in) numpy view of the (E, in, out)
+                # stack
+                out = np.ascontiguousarray(arr.transpose(0, 2, 1))
         gtype = quant.get(key, GGML_F16)
-        tensors[gname] = (arr, gtype)
+        tensors[gname] = (out, gtype)
         if gtype == GGML_F16:
             want = arr.astype(np.float16).astype(np.float32)
         else:
@@ -2317,7 +2365,10 @@ def _gguf_decoder_file(cfg, tmp, rng):
           kv_u32("tokenizer.ggml.eos_token_id", 2),
           kv_u32("tokenizer.ggml.unknown_token_id", 0),
           kv_str("tokenizer.chat_template", CHATML_TEMPLATE)]
-    path = os.path.join(tmp, "decoder-f16-q8-q4.gguf")
+    if moe:
+        md += [kv_u32("llama.expert_count", cfg.n_experts),
+               kv_u32("llama.expert_used_count", cfg.top_k)]
+    path = os.path.join(tmp, name)
     t0 = time.perf_counter()
     write_gguf(path, tensors, md)
     return path, time.perf_counter() - t0, expect, words
@@ -2528,16 +2579,24 @@ def _proj_bytes_bf16(cfg):
 
 
 def _dequantized_state(qsd):
-    """A quantized state_dict's projections as float (out, in) weights:
-    the values the int8 codes and scales stand for."""
+    """A quantized state_dict's projections as float (out, in) weights,
+    and its stacked MoE experts as float (E, in, out) stacks: the values
+    the int8 codes and scales stand for."""
     import torch
 
     from libsplinter_tpu_torch.models.quant import (dequantize_channel_kernel,
-                                                    dequantize_kernel)
+                                                    dequantize_kernel,
+                                                    expert_weight)
     out = {}
     for k, v in qsd.items():
         head, leaf = k.rsplit(".", 1)
-        if leaf == "q":
+        if leaf.endswith("_experts_q"):
+            stack = leaf.removesuffix("_q")
+            out[f"{head}.{stack}"] = expert_weight(
+                v, qsd[f"{head}.{stack}_scale"], torch.float32)
+        elif leaf.endswith("_experts_scale"):
+            continue
+        elif leaf == "q":
             w = dequantize_kernel({"q": v.numpy(),
                                    "scale": qsd[f"{head}.scale"].numpy()})
             out[f"{head}.weight"] = torch.from_numpy(w.T.copy())
@@ -2918,6 +2977,596 @@ def phase_variants(card, timings, tmp):
     return launches
 
 
+# -- phase 10: speculative decoding ------------------------------------------
+
+SPEC_NEW_TOKENS = 64
+SPEC_DRAFT_LAYERS, SPEC_GAMMA = 9, 4
+
+
+def _id_tokenizer():
+    """The piece tokenizer with every id streamed as its own "<id>"
+    piece, so a completion reads back as its exact token ids (phase 10
+    compares lanes token by token)."""
+    class IdTokenizer(type(_piece_tokenizer())):
+        def token_to_piece(self, tok: int) -> bytes:
+            return f"<{tok}>".encode()
+
+    return IdTokenizer()
+
+
+def _pool_used(cache) -> tuple:
+    """Pages held: (target, draft) for the paired speculative pools."""
+    pair = getattr(cache, "draft", None)
+    if pair is not None:
+        return cache.target.used_pages, pair.used_pages
+    return (cache.used_pages,)
+
+
+def _ids_lane(model, prompts, what, **kw):
+    """`prompts` through run_continuous on a fresh store with the id
+    tokenizer: (token ids per key, wall s, K4/K5 launches, K5 launches
+    by query tokens, the Completer, the pool pages held once the last
+    key was READY)."""
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.ops.paged_attention import LAUNCHES_BY_QTOKENS
+
+    name = f"/spt-smoke-s{os.getpid()}"
+    st = Store.create(name, nslots=128, max_val=8192, vec_dim=0)
+    try:
+        comp = Completer(st, model=model, tokenizer=_id_tokenizer(),
+                         template="none", max_new_tokens=SPEC_NEW_TOKENS,
+                         **kw)
+        comp.attach()
+        held = {}
+        stop = comp.stop
+
+        def stop_after_release():
+            # the feeder stops the lane once every key is READY; a row's
+            # pages return right after its READY flip
+            deadline = time.monotonic() + 2.0
+            while any(_pool_used(comp._paged_cache)) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+            held["pages"] = _pool_used(comp._paged_cache)
+            stop()
+
+        comp.stop = stop_after_release
+        LAUNCHES_BY_QTOKENS.clear()
+        counts, wall = _lane_run(comp, st, P, prompts, what)
+        by_q = dict(LAUNCHES_BY_QTOKENS)
+        ids = {k: [int(x) for x in re.findall(
+            rb"<(\d+)>", st.get(k).rstrip(b"\0")[len(t.encode()):])]
+            for k, t in prompts.items()}
+    finally:
+        st.close()
+        Store.unlink(name)
+    check(all(len(v) == SPEC_NEW_TOKENS for v in ids.values()),
+          f"{what}: a completion did not read back as {SPEC_NEW_TOKENS} ids")
+    return ids, wall, counts, by_q, comp, held["pages"]
+
+
+def _lane_logits(model, ids, history):
+    """The plain continuous lane's logits for output position
+    len(history) of one row: its prompt `ids` prefilled into a 32-row
+    pool (the lane's geometry; the other rows dead), then `history` fed
+    back one decode step at a time, as the lane's chunks do."""
+    import torch
+
+    cache = model.init_paged(32)
+    check(cache.ensure(0, len(ids) + len(history) + 1), "scratch pool full")
+    logits = model.paged_prefill_row(cache, np.asarray(ids, np.int32), 0)
+    tables = model._h2d(cache.tables)
+    toks = torch.zeros((32, 1), dtype=torch.int64, device="cuda")
+    for t in history:
+        toks[0, 0] = int(t)
+        with torch.no_grad():
+            step = model.module(toks, cache.layers(), 0, tables=tables,
+                                lengths=model._h2d(cache.lengths))
+        logits = step[0, 0].float().cpu().numpy()
+        cache.lengths[0] += 1
+    cache.reset()
+    return logits
+
+
+def _first_divergences(model, comp, prompts, plain, spec, near_tie):
+    """Per request, the first position where the speculative lane's
+    greedy ids leave the plain lane's; each must be a near-tie of the
+    plain lane's logits there (near_tie(top1, top2) true).  Returns
+    (token agreement, [(key, position, top1, top2)])."""
+    agree, cases = [], []
+    for key, text in prompts.items():
+        a, b = plain[key], spec[key]
+        agree.append(float(np.mean(np.array(a) == np.array(b))))
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if pos is None:
+            continue
+        ids = comp._clip_context(comp._tok.encode(text), bucketed=True)
+        top = np.sort(_lane_logits(model, ids, a[:pos]))[::-1]
+        cases.append((key, pos, float(top[0]), float(top[1])))
+        check(near_tie(top[0], top[1]),
+              f"{key}: speculative greedy leaves the plain lane at output "
+              f"{pos} ({b[pos]} for {a[pos]}) where the plain top-2 logits "
+              f"{top[0]:.6f} and {top[1]:.6f} are no near-tie")
+    return float(np.mean(agree)), cases
+
+
+def _bf16_near_tie(top1, top2):
+    """Within 4 bf16 ulps of the larger logit."""
+    ulp = 2.0 ** (np.floor(np.log2(abs(top1))) - 7)
+    return top1 - top2 <= 4 * ulp
+
+
+def _spec_pair(model):
+    from libsplinter_tpu_torch.models import (SpeculativeCompletionModel,
+                                              self_draft_model)
+
+    return SpeculativeCompletionModel(
+        model, self_draft_model(model, SPEC_DRAFT_LAYERS), gamma=SPEC_GAMMA)
+
+
+def _spec_compare(card, model, prompts, what, near_tie, tie_text):
+    """The plain lane and the speculative lane (a self-draft of the
+    first 9 layers, gamma 4, the acceptance floor off so the lane stays
+    speculative) over the same prompts, both without the prefix cache
+    (the paired pools have none); returns the record and launches."""
+    plain, p_wall, p_counts, p_by_q, p_comp, p_held = _ids_lane(
+        model, prompts, f"{what} plain", prefix_cache=False)
+    spec_model = _spec_pair(model)
+    spec, s_wall, s_counts, s_by_q, s_comp, s_held = _ids_lane(
+        spec_model, prompts, f"{what} speculative",
+        spec_min_acceptance=0.0)
+    check(isinstance(s_comp._model, type(spec_model)),
+          f"{what}: the speculative lane was demoted")
+    check(p_held == (0,) and s_held == (0, 0),
+          f"{what}: pages held after the drain: plain {p_held}, "
+          f"speculative (target, draft) {s_held}")
+    check(s_by_q.get(SPEC_GAMMA + 1, 0) > 0 and s_by_q.get(1, 0) > 0,
+          f"{what}: K5 launches by query tokens {s_by_q}: no verify stack")
+    m = spec_model
+    check(m.stats_verified > m.stats_proposed > 0,
+          f"{what}: verified {m.stats_verified} <= proposed "
+          f"{m.stats_proposed}")
+    agree, cases = _first_divergences(model, p_comp, prompts, plain, spec,
+                                      near_tie)
+    tokens = len(prompts) * SPEC_NEW_TOKENS
+    log(f"speculative, {what}: {len(prompts)} requests x "
+        f"{SPEC_NEW_TOKENS} tokens; greedy token agreement with the plain "
+        f"lane {agree:.4f}, {len(cases)} first divergences, each a "
+        f"near-tie of the plain lane's logits ({tie_text}): {cases}; "
+        f"acceptance {m.acceptance_rate:.4f} (proposed {m.stats_proposed}, "
+        f"accepted {m.stats_accepted}, verified {m.stats_verified}); "
+        f"plain {tokens / p_wall:.1f} tokens/s, speculative "
+        f"{tokens / s_wall:.1f} tokens/s (cold, prefill included); K4 "
+        f"{p_counts['causal_fwd']} + {s_counts['causal_fwd']}, K5 "
+        f"{p_counts['paged_fwd']} + {s_counts['paged_fwd']} (plain + "
+        f"speculative), K5 by query tokens: plain {p_by_q}, speculative "
+        f"{s_by_q}; pages held after the drain {s_held} [{card}]")
+    rec = {"agreement": agree, "divergences": cases,
+           "acceptance": m.acceptance_rate, "proposed": m.stats_proposed,
+           "accepted": m.stats_accepted, "verified": m.stats_verified,
+           "plain_tokens_per_s": tokens / p_wall,
+           "spec_tokens_per_s": tokens / s_wall,
+           "k5_by_q_tokens_spec": s_by_q}
+    launches = {k: p_counts[k] + s_counts[k]
+                for k in ("causal_fwd", "paged_fwd")}
+    return rec, launches
+
+
+def _spec_demotion_drill(card, model, prompts):
+    """4 requests on a speculative lane with --spec-min-acceptance 0.99:
+    the floor trips at a heartbeat, the heartbeat shows spec_demotions
+    1, the lane adopts the plain target with a fresh pool at its next
+    idle point, and every request ends READY."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.models.decoder import PagedKVCache
+    from libsplinter_tpu_torch.ops import _cuda
+
+    spec_model = _spec_pair(model)
+    name = f"/spt-smoke-sd{os.getpid()}"
+    st = Store.create(name, nslots=64, max_val=8192, vec_dim=0)
+    out = {}
+    try:
+        comp = Completer(st, model=spec_model, tokenizer=_piece_tokenizer(),
+                         template="none", max_new_tokens=SPEC_NEW_TOKENS,
+                         spec_min_acceptance=0.99)
+        comp.attach()
+
+        def feeder():
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + 120
+            _ask(st, P, prompts)
+            while time.monotonic() < deadline and not (
+                    all(st.labels(k) & P.LBL_READY for k in prompts)
+                    and isinstance(comp._paged_cache, PagedKVCache)):
+                time.sleep(0.01)
+            out["wall"] = time.perf_counter() - t0
+            comp.stop()
+
+        _cuda.LAUNCHES.reset()
+        th = threading.Thread(target=feeder, daemon=True)
+        th.start()
+        comp.run_continuous(idle_timeout_ms=20, stop_after=180)
+        th.join(timeout=30)
+        torch.cuda.synchronize()
+        counts = {k: _cuda.LAUNCHES[k] for k in ("causal_fwd", "paged_fwd")}
+        comp.publish_stats()
+        beat = json.loads(st.get(P.KEY_COMPLETE_STATS).rstrip(b"\0"))
+        _check_served(st, P, prompts)
+    finally:
+        st.close()
+        Store.unlink(name)
+    check(beat.get("spec_demotions") == 1 and comp._model is model,
+          f"demotion drill: heartbeat spec_demotions "
+          f"{beat.get('spec_demotions')}, model demoted "
+          f"{comp._model is model}")
+    check(isinstance(comp._paged_cache, PagedKVCache),
+          "demotion drill: the lane kept the paired speculative pools")
+    _check_no_abort(comp, comp.stats.tokens, len(prompts), "demotion drill")
+    log(f"speculative, demotion drill: {len(prompts)} requests, floor "
+        f"0.99; heartbeat spec_demotions {beat['spec_demotions']}, "
+        f"spec_acceptance {beat.get('spec_acceptance')}, the lane adopted "
+        f"the plain target with a fresh pool; all READY in "
+        f"{out['wall']:.2f}s [{card}]")
+    return {"spec_demotions": beat["spec_demotions"],
+            "spec_acceptance": beat.get("spec_acceptance"),
+            "wall_s": out["wall"]}, counts
+
+
+def _spec_draft_weights(card, tmp):
+    """--draft-weights: a DecoderConfig(layers=2) draft on phase 8's
+    vocab written by gguf_writer, behind phase 8's decoder file.  In f32
+    (TF32 off), built as completer.main builds it: the serial lane's
+    greedy output for 2 requests equals the target-only output.  Then
+    completer.main itself with --draft-weights serves the 2 requests on
+    the card (bf16)."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import completer as comp_mod
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.models import (CompletionModel, DecoderConfig,
+                                              GgufFile,
+                                              SpeculativeCompletionModel,
+                                              decoder_config_from_gguf,
+                                              load_tokenizer)
+    from libsplinter_tpu_torch.ops import _cuda
+
+    target_path = os.path.join(tmp, "decoder-f16-q8-q4.gguf")
+    rng = np.random.default_rng(37)          # phase 8's vocab draw
+    draft_path, _, _, words = _gguf_decoder_file(
+        DecoderConfig(layers=2), tmp, rng, name="draft-2-layers.gguf",
+        mixed=False, seed=43)
+    prompts = {f"draft/{i}": " ".join(rng.choice(words, n))
+               for i, n in enumerate((40, 200))}
+    with GgufFile(target_path) as gf:
+        tcfg = decoder_config_from_gguf(gf, dtype=torch.float32)
+        tok = load_tokenizer(gf)
+    with GgufFile(draft_path) as gf:
+        dcfg = decoder_config_from_gguf(gf, dtype=torch.float32)
+    target = CompletionModel(tcfg, weights=target_path, temp=0.0,
+                             device="cuda")
+    draft = CompletionModel(dcfg, weights=draft_path, temp=0.0,
+                            device="cuda")
+    spec = SpeculativeCompletionModel(target, draft, gamma=SPEC_GAMMA)
+    served = []
+    _cuda.LAUNCHES.reset()
+    for model in (target, spec):
+        name = f"/spt-smoke-dw{os.getpid()}"
+        st = Store.create(name, nslots=64, max_val=16384, vec_dim=0)
+        try:
+            comp = comp_mod.Completer(st, model=model, tokenizer=tok,
+                                      template="chatml", batch_cap=1,
+                                      max_new_tokens=SPEC_NEW_TOKENS)
+            comp.attach()
+            _ask(st, P, prompts)
+            t0 = time.perf_counter()
+            check(comp.run_once() == len(prompts), "serial lane: not served")
+            wall = time.perf_counter() - t0
+            served.append(_served_bytes(st, prompts))
+            check(comp.stats.faults == 0 and comp.stats.completions == 2,
+                  f"serial lane: {comp.stats}")
+        finally:
+            st.close()
+            Store.unlink(name)
+    check(served[0] == served[1], "--draft-weights serial lane: greedy "
+          "output differs from the target-only output (f32)")
+    torch.cuda.synchronize()
+    counts = {k: _cuda.LAUNCHES[k] for k in ("causal_fwd", "paged_fwd")}
+    acc = spec.acceptance_rate
+    del target, draft, spec
+    torch.cuda.empty_cache()
+
+    # the flag itself, through completer.main on the card (bf16)
+    name = f"/spt-smoke-dm{os.getpid()}"
+    st = Store.create(name, nslots=64, max_val=16384, vec_dim=0)
+    try:
+        _ask(st, P, prompts)
+        t0 = time.perf_counter()
+        rc = comp_mod.main(["--store", name, "--weights", target_path,
+                            "--draft-weights", draft_path, "--gamma",
+                            str(SPEC_GAMMA), "--oneshot", "--template",
+                            "auto", "--temp", "0", "--batch-cap", "1",
+                            "--max-new-tokens", str(SPEC_NEW_TOKENS)])
+        main_s = time.perf_counter() - t0
+        ok = all(st.labels(k) & P.LBL_READY for k in prompts)
+    finally:
+        st.close()
+        Store.unlink(name)
+    check(rc == 0 and ok, f"completer.main --draft-weights: rc {rc}, "
+          f"READY {ok}")
+    log(f"speculative, --draft-weights ({os.path.getsize(draft_path)} "
+        f"bytes, DecoderConfig(layers=2) on phase 8's vocab) behind phase "
+        f"8's file: f32 serial lane, 2 requests x {SPEC_NEW_TOKENS} "
+        f"tokens, greedy output byte-identical to the target-only lane's "
+        f"(acceptance {acc:.4f}); completer.main --draft-weights served "
+        f"both READY in {main_s:.2f}s (bf16, load included) [{card}]")
+    return {"acceptance": acc, "main_s": main_s}, counts
+
+
+def phase_speculative(card, timings, tmp):
+    """Speculative decoding on the continuous lane at DecoderConfig()
+    width, greedy, 16 of phase 9's prompts x 64 tokens, a self-draft of
+    9 layers and gamma 4: f32 (TF32 off) and bf16 against the plain lane
+    token for token (first divergences only at near-ties), acceptance
+    and counters, no page held; the demotion drill; the serial lane
+    with a --draft-weights GGUF.  Returns K4/K5 launches by path."""
+    import torch
+
+    from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
+
+    t0 = time.perf_counter()
+    prompts = _variant_prompts(np.random.default_rng(11), 16)
+    out, launches = {}, {}
+    m32 = CompletionModel(DecoderConfig(dtype=torch.float32), seed=0,
+                          temp=0.0, device="cuda")
+    out["f32"], launches["f32"] = _spec_compare(
+        card, m32, prompts, "f32", lambda a, b: a - b < 1e-4,
+        "top-2 within 1e-4")
+    del m32
+    torch.cuda.empty_cache()
+    model = CompletionModel(DecoderConfig(), seed=0, temp=0.0, device="cuda")
+    out["bf16"], launches["bf16"] = _spec_compare(
+        card, model, prompts, "bf16", _bf16_near_tie,
+        "top-2 within 4 bf16 ulps of the larger")
+    out["demotion"], launches["demotion"] = _spec_demotion_drill(
+        card, model, dict(list(prompts.items())[:4]))
+    del model
+    torch.cuda.empty_cache()
+    out["draft_weights"], launches["draft_weights"] = _spec_draft_weights(
+        card, tmp)
+    timings["speculative"] = out
+    timings["speculative_s"] = time.perf_counter() - t0
+    log(f"speculative phase: {timings['speculative_s']:.1f}s [{card}]")
+    return launches
+
+
+# -- phase 11: MoE on one card ------------------------------------------------
+
+MOE_NEW_TOKENS = 64
+
+
+def _moe_main(card, path, prompts, extra, what):
+    """completer.main --weights <file> --continuous --template auto
+    (greedy) over `prompts` on a fresh store, stopped once every key is
+    READY: (the lane's Completer, served bytes, wall s, K4/K5
+    launches)."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import completer as comp_mod
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.ops import _cuda
+
+    base, made = comp_mod.Completer, []
+
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    name = f"/spt-smoke-moe{os.getpid()}"
+    st = Store.create(name, nslots=64, max_val=16384, vec_dim=0)
+    done, finished = {}, threading.Event()
+
+    def feeder():
+        deadline = time.monotonic() + 600
+        while not made:
+            if finished.wait(0.01) or time.monotonic() > deadline:
+                return
+        t1 = time.perf_counter()
+        _ask(st, P, prompts)
+        busy = P.LBL_INFER_REQ | P.LBL_WAITING | P.LBL_SERVICING
+        while time.monotonic() < deadline:
+            if all(st.labels(k) & P.LBL_READY and not st.labels(k) & busy
+                   for k in prompts):
+                done["wall"] = time.perf_counter() - t1
+                break
+            time.sleep(0.01)
+        while not finished.is_set():
+            made[0].stop()
+            finished.wait(0.5)
+
+    th = threading.Thread(target=feeder, daemon=True)
+    try:
+        _cuda.LAUNCHES.reset()
+        comp_mod.Completer = Recording
+        th.start()
+        rc = comp_mod.main(["--store", name, "--weights", path,
+                            "--continuous", "--template", "auto", "--temp",
+                            "0", "--max-new-tokens", str(MOE_NEW_TOKENS),
+                            "--idle-timeout-ms", "20", *extra])
+        torch.cuda.synchronize()
+        counts = {k: _cuda.LAUNCHES[k] for k in ("causal_fwd", "paged_fwd")}
+    finally:
+        comp_mod.Completer = base
+        finished.set()
+        th.join(timeout=60)
+        served = _served_bytes(st, prompts)
+        labels = {k: st.labels(k) for k in prompts}
+        st.close()
+        Store.unlink(name)
+    check(rc == 0 and made and "wall" in done,
+          f"{what}: rc {rc}, served {made[0].stats.completions if made else 0}"
+          f" of {len(prompts)}")
+    comp = made[0]
+    check(comp.template == "chatml", f"{what}: template {comp.template!r}")
+    check(all(v & P.LBL_READY for v in labels.values()), f"{what}: READY")
+    _check_no_abort(comp, comp.stats.tokens, len(prompts), what)
+    check(counts["causal_fwd"] > 0 and counts["paged_fwd"] > 0,
+          f"{what}: K4/K5 never launched: {counts}")
+    return comp, served, done["wall"], counts
+
+
+def _moe_reference(path, prompts):
+    """The served bytes of a moe_completion_model built in-process from
+    the same file, greedy, on the continuous lane (the same per-row
+    computation as the daemon's)."""
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.completer import Completer
+    from libsplinter_tpu_torch.models import (GgufFile,
+                                              decoder_config_from_gguf,
+                                              load_tokenizer,
+                                              moe_completion_model)
+
+    with GgufFile(path) as gf:
+        cfg = decoder_config_from_gguf(gf)
+        tok = load_tokenizer(gf)
+    model = moe_completion_model(cfg, weights=path, temp=0.0, device="cuda")
+    name = f"/spt-smoke-mr{os.getpid()}"
+    st = Store.create(name, nslots=64, max_val=16384, vec_dim=0)
+    try:
+        comp = Completer(st, model=model, tokenizer=tok, template="chatml",
+                         max_new_tokens=MOE_NEW_TOKENS)
+        comp.attach()
+        _drive_continuous(comp, st, P, [prompts])
+        return _served_bytes(st, prompts), model
+    finally:
+        st.close()
+        Store.unlink(name)
+
+
+def _expert_bytes(module):
+    """Bytes the quantized expert stacks hold (codes and scales)."""
+    return sum(b.numel() * b.element_size()
+               for n, b in module.named_buffers() if "_experts_" in n)
+
+
+def phase_moe(card, timings, tmp):
+    """A Mixtral-family GGUF at DecoderConfig() geometry with 8 experts,
+    top-2 (F16, phase 8's vocab and chatml template), opened cold and
+    served by completer.main on the continuous lane, float and
+    --quantized; returns K4/K5 launches by path."""
+    import torch
+
+    from libsplinter_tpu_torch.models import (GgufFile, MoeDecoderConfig,
+                                              decoder_config_from_gguf,
+                                              load_decoder_params,
+                                              moe_completion_model)
+    from libsplinter_tpu_torch.models.quant import (QUANT_LEAVES,
+                                                    quantize_state_dict)
+
+    t0 = time.perf_counter()
+    cfg = MoeDecoderConfig(n_experts=8, top_k=2)
+    rng = np.random.default_rng(37)              # phase 8's vocab draw
+    path, write_s, expect, words = _gguf_decoder_file(
+        cfg, tmp, rng, name="moe-8x-f16.gguf", mixed=False, seed=47)
+    t1 = time.perf_counter()
+    with GgufFile(path) as gf:
+        lcfg = decoder_config_from_gguf(gf)
+    sd = load_decoder_params(path, lcfg)
+    load_s = time.perf_counter() - t1
+    check(lcfg == cfg, f"MoE config from the file {lcfg} != {cfg}")
+    bad = [k for k in expect if not torch.equal(sd[k], expect[k])]
+    check(sorted(sd) == sorted(expect) and not bad,
+          f"MoE file: {len(bad)} tensors differ, e.g. {bad[:3]}")
+    del expect
+    prompts = {f"moe/{i}": " ".join(rng.choice(words, n))
+               for i, n in enumerate((30, 90, 160, 240, 320, 400, 520, 640))}
+    log(f"moe: MoeDecoderConfig(8 experts, top-2) at DecoderConfig() width "
+        f"as F16 ({os.path.getsize(path)} bytes) written in {write_s:.2f}s, "
+        f"config + state_dict read back in {load_s:.2f}s, every tensor its "
+        f"source's f16 rounding [{card}]")
+
+    launches, out = {}, {}
+    comp, served, wall, launches["float"] = _moe_main(
+        card, path, prompts, [], "moe lane")
+    tokens = comp.stats.tokens
+    del comp
+    torch.cuda.empty_cache()
+    want, ref = _moe_reference(path, prompts)
+    check(served == want, "moe lane: completer.main's completions differ "
+          "from an in-process moe_completion_model's on the same file")
+    del ref
+    torch.cuda.empty_cache()
+    out["float"] = {"tokens_per_s": tokens / wall, "wall_s": wall}
+    log(f"moe lane: completer.main --weights <file> --continuous --template "
+        f"auto, {len(prompts)} requests x {MOE_NEW_TOKENS} tokens, "
+        f"{tokens / wall:.1f} tokens/s (cold, prefill included), "
+        f"completions byte-identical to an in-process moe_completion_model"
+        f"'s; K4 {launches['float']['causal_fwd']}, K5 "
+        f"{launches['float']['paged_fwd']} [{card}]")
+
+    comp, _, qwall, launches["quantized"] = _moe_main(
+        card, path, prompts, ["--quantized"], "moe lane --quantized")
+    qtokens = comp.stats.tokens
+    ratio = _expert_bytes(comp._model.module) / (
+        cfg.layers * 3 * cfg.n_experts * cfg.hidden * cfg.mlp_dim * 2)
+    check(abs(ratio - 0.5625) < 1e-9, f"moe --quantized: experts hold "
+          f"{ratio} x bf16, geometry 0.5625")
+    del comp
+    torch.cuda.empty_cache()
+
+    # first-step logits of the int8-expert model against the float model
+    # on the dequantized weights, f32 (TF32 off)
+    qcfg = dataclasses.replace(lcfg, dtype=torch.float32, quantized=True)
+    qsd = quantize_state_dict(sd, QUANT_LEAVES)
+    ids = np.asarray(_chatml_ids(path, prompts["moe/2"]), np.int32)
+    qm = moe_completion_model(qcfg, params=qsd, temp=0.0, device="cuda")
+    fm = moe_completion_model(dataclasses.replace(lcfg, dtype=torch.float32),
+                              params=_dequantized_state(qsd), temp=0.0,
+                              device="cuda")
+    a, b = qm.prefill(ids), fm.prefill(ids)
+    tok = int(np.argmax(b))
+    err = max(float(np.abs(a - b).max()),
+              float(np.abs(qm.decode_one(tok) - fm.decode_one(tok)).max()))
+    check(err <= 1e-5, f"moe --quantized f32: logits {err} from the float "
+          f"model on the dequantized weights (bar 1e-5)")
+    del qm, fm, qsd, sd
+    torch.cuda.empty_cache()
+    out["quantized"] = {"tokens_per_s": qtokens / qwall, "wall_s": qwall,
+                        "expert_ratio": ratio, "f32_max_err": err}
+    log(f"moe lane --quantized: {len(prompts)} requests, "
+        f"{qtokens / qwall:.1f} tokens/s; experts resident {ratio:.4f} x "
+        f"bf16; first-step logits vs the float model on the dequantized "
+        f"weights, f32: max err {err:.3e} (bar 1e-5); K4 "
+        f"{launches['quantized']['causal_fwd']}, K5 "
+        f"{launches['quantized']['paged_fwd']} [{card}]")
+    out.update(write_s=write_s, load_s=load_s,
+               file_bytes=os.path.getsize(path))
+    timings["moe"] = out
+    timings["moe_s"] = time.perf_counter() - t0
+    log(f"moe phase: {timings['moe_s']:.1f}s [{card}]")
+    return launches
+
+
+def _chatml_ids(path, text):
+    """`text` rendered with chatml and encoded by the file's tokenizer,
+    as the daemon encodes a request."""
+    from libsplinter_tpu_torch.engine.completer import render_prompt
+    from libsplinter_tpu_torch.models import GgufFile, load_tokenizer
+
+    with GgufFile(path) as gf:
+        tok = load_tokenizer(gf)
+    return tok.encode(render_prompt(text, None, "chatml"))
+
+
 def _lane_slots(requested: int) -> int:
     """The requested slot count, cut to 262,144 when the temp dir
     cannot hold the file-backed store (~11.5 KB per slot mapped)."""
@@ -2985,6 +3634,15 @@ def main() -> int:
             for k, v in path.items():
                 counts[k] += v
         timings["variants_launches"] = variants
+        # and on the speculative lanes and the MoE lanes, each path
+        # counted from 0 just before it runs
+        for phase, key in ((phase_speculative, "speculative_launches"),
+                           (phase_moe, "moe_launches")):
+            paths = phase(card, timings, tmp)
+            for path in paths.values():
+                for k, v in path.items():
+                    counts[k] += v
+            timings[key] = paths
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -36,13 +36,17 @@ suffix prefill attends through kernel K5.  The label protocol, flush
 cadence, truncation, ctime backfill and __debug lines are the JAX
 daemon's, so torch and JAX daemons share one store.  ``main`` serves a
 .gguf checkpoint from the file alone (geometry, tokenizer, chat
-template, weights), int8-resident weights (--quantized, --weights-int8),
-a host-DRAM KV tier under the prefix cache (--kv-tier-pages, its warm
-snapshots with --kv-tier-persist; engine/kv_tier.py) and the
-disaggregated prefill/decode lanes (--phase; engine/disagg.py
-subclasses this daemon through the _lane_* hooks below).  Not ported
-yet: speculative decoding, MoE and sharded serving — ``main`` refuses
-their flags instead of serving another way.
+template, weights; a Mixtral-family file as the MoE decoder,
+models/moe.py), int8-resident weights (--quantized, --weights-int8),
+speculative decoding (--draft-layers, a self-draft that also serves the
+continuous lane; --draft-weights, a .gguf draft; models/speculative.py)
+with an acceptance floor that demotes to the plain target
+(--spec-min-acceptance), a host-DRAM KV tier under the prefix cache
+(--kv-tier-pages, its warm snapshots with --kv-tier-persist;
+engine/kv_tier.py) and the disaggregated prefill/decode lanes (--phase;
+engine/disagg.py subclasses this daemon through the _lane_* hooks
+below).  Not ported yet: sharded serving (--tp, --ep) — ``main`` refuses
+those flags instead of serving another way.
 """
 from __future__ import annotations
 
@@ -155,6 +159,7 @@ class CompleterStats:
     # had streamed and the pool rebuilt (abort_all), or an in-flight
     # chunk that failed to resolve at stop
     aborts: int = 0
+    spec_demotions: int = 0           # speculative -> plain fallbacks
 
 
 class Completer:
@@ -178,6 +183,7 @@ class Completer:
                  pool_pages: int | None = None,
                  kv_dtype: str | None = None,
                  inflight_depth: int | None = None,
+                 spec_min_acceptance: float = 0.2,
                  queue_high_water: int | None = None,
                  retry_after_ms: int | None = None,
                  tenant_weights: dict[int, float] | None = None,
@@ -193,7 +199,9 @@ class Completer:
         given, a seeded-random one is built on `device` ("cuda" by
         default, or "cpu").  page_size, pool_pages, kv_dtype,
         inflight_depth, the prefix_* and the kv_tier_* arguments shape
-        the continuous lane (run_continuous)."""
+        the continuous lane (run_continuous).  spec_min_acceptance: a
+        speculative model whose rolling draft acceptance falls below it
+        is demoted to its target (0 disables the floor)."""
         self.store = store
         # elastic lanes (protocol.StripeView): replica r drains only
         # its own slot-index stripe; stranded-SERVICING reclaim is
@@ -228,6 +236,12 @@ class Completer:
         # chunk before dispatching the next
         self.inflight_depth = (2 if inflight_depth is None
                                else max(1, inflight_depth))
+        # speculative decoding's acceptance floor (_maybe_demote_spec):
+        # (proposed, accepted) samples over the recent drains, and the
+        # rolling rate that tripped the floor (kept for the heartbeat)
+        self.spec_min_acceptance = spec_min_acceptance
+        self._spec_hist: list[tuple[int, int]] = []
+        self._spec_acceptance_rolling: float | None = None
         self._paged_cache = None
         # join-backpressure memo, idx -> (slot epoch, pages needed):
         # instance state so the heartbeat can publish its size and the
@@ -235,7 +249,8 @@ class Completer:
         self._bp_memo: dict[int, tuple[int, int]] = {}
         self._bp_memo_cap = 4096
         # cross-request prefix sharing over the paged pool, built with
-        # the pool (engine/prefix_cache.py)
+        # the pool (engine/prefix_cache.py; plain PagedKVCache only: the
+        # paired speculative pools don't share)
         self._prefix_enabled = bool(prefix_cache)
         self._prefix_cache_pages = prefix_cache_pages
         self._prefix_quotas = dict(prefix_quotas or {})
@@ -966,10 +981,10 @@ class Completer:
                 self.paged_batch_cap, page=self.page_size,
                 pool_pages=self.pool_pages, kv_dtype=self.kv_dtype)
             cache = self._paged_cache
-            if self._prefix_enabled:
+            if self._prefix_enabled and hasattr(cache, "map_shared"):
                 # (re)bind the radix tree to THIS pool: a rebuilt pool
-                # (abort recovery) invalidates every cached page id, so
-                # attach() empties the tree
+                # (abort recovery, spec demotion) invalidates every
+                # cached page id, so attach() empties the tree
                 if self.prefix_cache is None:
                     from .prefix_cache import PrefixCache
                     self.prefix_cache = PrefixCache(
@@ -1438,6 +1453,11 @@ class Completer:
                     break
                 if now >= next_beat:
                     next_beat = now + 2.0
+                    # the acceptance floor rides the beat on this lane
+                    # (run_once's per-drain hook never fires here): a
+                    # tripped floor swaps self._model to the target
+                    # NOW, and the lane adopts it at the next idle point
+                    self._maybe_demote_spec()
                     self._sweep_bp_memo()
                     self.publish_stats()
                     # the warm set's checkpoint rides the beat (dirty-
@@ -1451,6 +1471,18 @@ class Completer:
                         while window:
                             collect(window.popleft())
                         carry = None
+                        if self._model is not m:
+                            # a demotion decided mid-run: adopt the
+                            # target at this idle point (no live rows,
+                            # no chunk in flight); the paired spec pools
+                            # retire with their wrapper and a fresh pool
+                            # serves the plain model
+                            m = self._model
+                            self._paged_cache = None
+                            cache = self._ensure_paged_cache()
+                            bp_memo.clear()
+                            self._debug("continuous lane adopted the "
+                                        "demoted (plain) model")
                         if admit() == 0:
                             if self.replica \
                                     and self.stripes.poll_retired():
@@ -1624,8 +1656,54 @@ class Completer:
                     self.stats.faults += 1
                     self._debug(f"request at slot {idx} failed: {ex}")
                     self._requeue_failed([idx])
+        if n:
+            self._maybe_demote_spec()
         self.spans.flush()            # oneshot drains land their
         return n                      # spans; run() uses heartbeats
+
+    # -- speculative degradation -------------------------------------------
+
+    def _spec_acceptance(self) -> float | None:
+        """The live speculative acceptance rate, or None when the model
+        is not speculative (after a demotion too: the rate that tripped
+        the floor survives in _spec_acceptance_rolling)."""
+        m = getattr(self, "_model", None)
+        if m is None or not hasattr(m, "acceptance_rate"):
+            return None
+        return float(m.acceptance_rate)
+
+    def _maybe_demote_spec(self) -> None:
+        """The acceptance floor: a draft the target keeps rejecting costs
+        a draft forward per proposal and buys nothing, so a speculative
+        model is worse than its plain target below some acceptance.
+        Track a rolling acceptance over the recent drains (or beats);
+        when it sits under spec_min_acceptance with 32 proposals or
+        more behind it, swap the model for its own target and decode
+        plain for the rest of the run (spec_demotions counts it; 0
+        disables the floor)."""
+        m = getattr(self, "_model", None)
+        if (m is None or self.spec_min_acceptance <= 0
+                or not hasattr(m, "acceptance_rate")
+                or not hasattr(m, "target")):
+            return
+        if not self._spec_hist:
+            self._spec_hist.append((0, 0))
+        self._spec_hist.append((m.stats_proposed, m.stats_accepted))
+        if len(self._spec_hist) > 8:
+            self._spec_hist.pop(0)
+        p0, a0 = self._spec_hist[0]
+        dp = m.stats_proposed - p0
+        if dp < 32:
+            return                    # not enough evidence yet
+        rate = (m.stats_accepted - a0) / dp
+        self._spec_acceptance_rolling = rate
+        if rate < self.spec_min_acceptance:
+            self.stats.spec_demotions += 1
+            self._debug(
+                f"speculative acceptance {rate:.3f} < floor "
+                f"{self.spec_min_acceptance}: demoting to plain decode "
+                "(target model) for the rest of the run")
+            self._model = m.target
 
     def publish_stats(self) -> None:
         """Heartbeat: JSON stats snapshot into the debug-labeled
@@ -1634,8 +1712,8 @@ class Completer:
         it).  SPTPU_TRACE=1 adds histogram-sourced INFER_STAGES
         quantiles, recorder accounting, and the slow log.  The fields
         are the JAX daemon's dense- and continuous-lane ones, its KV-tier
-        gauges and the split lanes' sections (the speculative and
-        sharded gauges arrive with those lanes)."""
+        and speculative gauges and the split lanes' sections (the
+        sharded gauges arrive with that lane)."""
         self.spans.flush()            # heartbeat cadence, off the
         payload = dataclasses.asdict(self.stats)      # wake path
         payload["spans_obs"] = self.spans.counters()
@@ -1660,6 +1738,19 @@ class Completer:
             payload, bool(self.qos.high_water is not None or tenants))
         if not self._bp_memo and cache is None:
             payload.pop("bp_memo", None)             # dense lane
+        acc = self._spec_acceptance()
+        if acc is None:
+            # demoted: keep the rolling rate that tripped the floor
+            acc = self._spec_acceptance_rolling
+        if acc is not None:
+            payload["spec_acceptance"] = round(acc, 4)
+        m_now = getattr(self, "_model", None)
+        if hasattr(m_now, "stats_proposed"):
+            # drafted = proposals the draft generated, accepted = the
+            # proposals the target kept, verified = positions it scored
+            payload["spec_draft_tokens"] = int(m_now.stats_proposed)
+            payload["spec_accepted_tokens"] = int(m_now.stats_accepted)
+            payload["spec_verified_tokens"] = int(m_now.stats_verified)
         if cache is not None:
             # pool gauges (sptpu_completer_pages_{free,used})
             payload["pages_free"] = cache.free_pages
@@ -1789,16 +1880,8 @@ class Completer:
 # flags of the JAX daemon whose lanes the port does not have yet: each
 # refuses to start rather than serve another way (see ROADMAP.md)
 _NOT_PORTED = (
-    ("draft_weights", "--draft-weights",
-     "Queue A, speculative decoding: models/speculative.py"),
-    ("draft_layers", "--draft-layers",
-     "Queue A, speculative decoding: models/speculative.py"),
-    ("gamma", "--gamma",
-     "Queue A, speculative decoding: models/speculative.py"),
-    ("spec_min_acceptance", "--spec-min-acceptance",
-     "Queue A, speculative decoding: models/speculative.py"),
     ("tp", "--tp", "Queue A, multi-GPU: tensor-parallel serving"),
-    ("ep", "--ep", "Queue A, MoE and multi-GPU: expert parallelism"),
+    ("ep", "--ep", "Queue A, multi-GPU: expert parallelism"),
 )
 
 
@@ -1948,13 +2031,29 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--tenant-weights", default=None,
                     help="per-tenant fair-share weights, "
                          "TENANT:W[,TENANT:W...] (unlisted weigh 1)")
+    ap.add_argument("--draft-weights",
+                    help="speculative decoding: a small draft .gguf "
+                         "(geometry and vocab from its metadata) proposes "
+                         "--gamma tokens per target forward "
+                         "(models/speculative.py); serial lane")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="SELF-DRAFTING speculative decode: the draft is "
+                         "the target's own first N layers (shared "
+                         "embedding, final norm and LM head; no extra "
+                         "weights).  Serves the continuous lane too: the "
+                         "drafts verify through K5's multi-query stack")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="speculative proposal length per verify step")
+    ap.add_argument("--spec-min-acceptance", type=float, default=0.2,
+                    help="speculative decoding floor: when the rolling "
+                         "draft acceptance stays below this, demote to "
+                         "plain decode for the rest of the run (0 "
+                         "disables; the heartbeat publishes "
+                         "spec_acceptance)")
     not_ported = ap.add_argument_group(
         "not yet ported (the JAX daemon's; each refuses to start)")
-    for flag in ("--tp", "--ep", "--draft-layers", "--gamma"):
+    for flag in ("--tp", "--ep"):
         not_ported.add_argument(flag, type=int, default=None)
-    not_ported.add_argument("--spec-min-acceptance", type=float,
-                            default=None)
-    not_ported.add_argument("--draft-weights", default=None)
     args = ap.parse_args(argv)
     _refuse_not_ported(args)
     if args.weights == "int8":
@@ -1966,9 +2065,25 @@ def main(argv: list[str] | None = None) -> int:
             "both claim the attention/MLP kernels (Q8_0 blocks vs "
             "per-output-channel) — pick one weight residency")
 
+    if args.draft_weights and args.draft_layers:
+        raise SystemExit(
+            "--draft-weights and --draft-layers are mutually exclusive: "
+            "the first drafts with a separate checkpoint (serial lane "
+            "only), the second with a truncated view of the target "
+            "(continuous lane capable) — pick one")
+    if args.draft_weights and not args.draft_weights.endswith(".gguf"):
+        # a safetensors file carries no geometry metadata, and a draft
+        # small enough to be useful is never default-sized
+        raise SystemExit(
+            "--draft-weights requires a .gguf draft (geometry and "
+            "tokenizer come from its metadata); export the draft via "
+            "models/gguf_writer.py if needed")
+
     logging.basicConfig(level=logging.INFO)
     from ..models import (CompletionModel, DecoderConfig, GgufFile,
-                          decoder_config_from_gguf, load_tokenizer)
+                          MoeDecoderConfig, SpeculativeCompletionModel,
+                          decoder_config_from_gguf, load_tokenizer,
+                          moe_completion_model, self_draft_model)
 
     tokenizer = None
     template = args.template
@@ -2002,8 +2117,32 @@ def main(argv: list[str] | None = None) -> int:
     if args.weights_int8:
         fault("completer.weight_quant")
         cfg = dataclasses.replace(cfg, weights_int8=True)
-    model = CompletionModel(cfg, weights=args.weights, top_p=args.top_p,
-                            temp=args.temp, device=args.device)
+    mkw = dict(weights=args.weights, top_p=args.top_p, temp=args.temp,
+               device=args.device)
+    if isinstance(cfg, MoeDecoderConfig):
+        # a Mixtral-family GGUF resolves to the MoE config; the same
+        # daemon stack serves it (models/moe.py)
+        log.info("MoE checkpoint: %d experts, top-%d routing",
+                 cfg.n_experts, cfg.top_k)
+        model = moe_completion_model(cfg, **mkw)
+    else:
+        model = CompletionModel(cfg, **mkw)
+    if args.draft_weights:
+        with GgufFile(args.draft_weights) as gf:
+            dcfg = decoder_config_from_gguf(gf)
+        draft = CompletionModel(dcfg, weights=args.draft_weights,
+                                top_p=args.top_p, temp=args.temp,
+                                device=args.device)
+        model = SpeculativeCompletionModel(model, draft, gamma=args.gamma)
+        log.info("speculative decoding: gamma=%d draft=%s", args.gamma,
+                 args.draft_weights)
+    elif args.draft_layers:
+        draft = self_draft_model(model, args.draft_layers)
+        model = SpeculativeCompletionModel(model, draft, gamma=args.gamma)
+        log.info("self-drafting speculative decode: first %d of %d "
+                 "layers, gamma=%d (drafts verify through K5 on the "
+                 "continuous lane)", args.draft_layers, cfg.layers,
+                 args.gamma)
     store = Store.open(args.store, persistent=args.persistent)
     cls = Completer
     if args.phase != "unified":
@@ -2015,6 +2154,7 @@ def main(argv: list[str] | None = None) -> int:
                      page_size=args.page_size, pool_pages=args.pool_pages,
                      kv_dtype=args.kv_dtype,
                      inflight_depth=args.inflight_depth,
+                     spec_min_acceptance=args.spec_min_acceptance,
                      queue_high_water=args.queue_high_water,
                      retry_after_ms=args.retry_after_ms,
                      tenant_weights=parse_tenant_weights(
@@ -2036,7 +2176,8 @@ def main(argv: list[str] | None = None) -> int:
             comp.warmup_paged()
         else:
             kw = {}
-            if comp.batch_cap > 1 and comp._batched_budget() is not None:
+            if comp.batch_cap > 1 and hasattr(model, "prefill_batch") \
+                    and comp._batched_budget() is not None:
                 kw["batch"] = comp.batch_cap    # the dense batched shapes
             model.warmup(chunk=comp.flush_tokens, **kw)
         log.info("warmup ran in %.1fs", time.monotonic() - t0)

@@ -567,14 +567,20 @@ class CausalAttention(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + SwiGLU MLP; the gate/up/down projections sit
-    directly under the layer, as in the flax tree."""
+    """Pre-norm attention + MLP block.  mlp_cls=None is the dense
+    SwiGLU, its gate/up/down projections directly under the layer as in
+    the flax tree; a custom mlp_cls (moe.MoeMlp) mounts under the name
+    `moe` instead."""
 
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, mlp_cls=None):
         super().__init__()
+        self.mlp_cls = mlp_cls
         self.attn = CausalAttention(cfg)
         self.ln_attn = RMSNorm(cfg.hidden, cfg.rms_eps, cfg.dtype)
         self.ln_mlp = RMSNorm(cfg.hidden, cfg.rms_eps, cfg.dtype)
+        if mlp_cls is not None:
+            self.moe = mlp_cls(cfg)
+            return
         self.gate = _proj(cfg, cfg.hidden, cfg.mlp_dim)
         self.up = _proj(cfg, cfg.hidden, cfg.mlp_dim)
         self.down = _proj(cfg, cfg.mlp_dim, cfg.hidden)
@@ -584,6 +590,8 @@ class DecoderLayer(nn.Module):
         x = x + self.attn(self.ln_attn(x), cache_kv, pos, start, rotary,
                           lengths, tables, n_valid)
         h = self.ln_mlp(x)
+        if self.mlp_cls is not None:
+            return x + self.moe(h)
         return x + self.down(F.silu(self.gate(h)) * self.up(h))
 
 
@@ -591,14 +599,17 @@ class Decoder(nn.Module):
     """Causal LM over a static KV cache; one forward serves prefill
     (S = bucket) and decode (S = 1).  Submodule names mirror the flax
     tree (tok_emb, layer_<i>.{attn.{q,k,v,out},ln_attn,ln_mlp,gate,up,
-    down}, ln_out, lm_head), so params_from_jax maps leaf by leaf."""
+    down}, ln_out, lm_head), so params_from_jax maps leaf by leaf.  The
+    trunk is shared by every decoder family: mlp_cls swaps each layer's
+    MLP (moe.MoeDecoder passes MoeMlp, mounted at layer_<i>.moe)."""
 
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, mlp_cls=None):
         super().__init__()
         self.cfg = cfg
+        self.mlp_cls = mlp_cls
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.hidden)
         for i in range(cfg.layers):
-            self.add_module(f"layer_{i}", DecoderLayer(cfg))
+            self.add_module(f"layer_{i}", DecoderLayer(cfg, mlp_cls))
         self.ln_out = RMSNorm(cfg.hidden, cfg.rms_eps, cfg.dtype)
         self.lm_head = nn.Linear(cfg.hidden, cfg.vocab_size, bias=False)
         cos, sin = _rotary_angles(cfg.max_len, cfg.head_dim,
@@ -642,7 +653,7 @@ def init_params(module: Decoder, generator: torch.Generator) -> None:
     variance, RMSNorm scales at 1; int8-resident projections draw codes
     uniform in [-127, 127] under scales 1 / (127 sqrt(fan_in))."""
     for m in module.modules():
-        if isinstance(m, (QuantDense, ChannelQuantDense)):
+        if hasattr(m, "init_weights"):      # int8 projections, MoeMlp
             m.init_weights(generator)
         elif isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
@@ -736,7 +747,8 @@ class CompletionModel:
                  params: dict | None = None, weights: str | None = None,
                  top_p: float = 0.9, temp: float = 0.7, device=None,
                  kv_dtype: str | None = None,
-                 suffix_buckets: tuple[int, ...] = (16, 64)):
+                 suffix_buckets: tuple[int, ...] = (16, 64),
+                 mlp_cls=None, module: Decoder | None = None):
         """params: a Decoder state_dict (e.g. from params_from_jax);
         weights: a .gguf or .safetensors checkpoint path.  With
         cfg.quantized or cfg.weights_int8 a float state_dict is
@@ -745,7 +757,11 @@ class CompletionModel:
         (default) or "cpu".  kv_dtype: init_paged's default pool
         storage (None = the activation dtype).  suffix_buckets: the pad
         buckets of paged_append_prefill's stacks (longer suffixes loop
-        the largest)."""
+        the largest).  mlp_cls: the trunk's per-layer MLP (moe.MoeMlp;
+        None is the dense SwiGLU).  module: an already-built trunk on
+        `device` served with the weights it holds (a self-draft's view
+        of its target, speculative.self_draft_model): nothing is
+        initialised, loaded or cast."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.suffix_buckets = tuple(sorted(
@@ -762,32 +778,19 @@ class CompletionModel:
             raise ValueError(
                 "quantized (Q8_0 blocks) and weights_int8 (per-channel) "
                 "are two residencies for the same projections — pick one")
-        if params is None and weights is not None:
-            if weights.endswith(".gguf"):
-                from .gguf import load_decoder_params
-                params = load_decoder_params(weights, cfg)
-            else:
-                params = load_safetensors_params(weights, cfg)
-        if params is not None and (cfg.quantized or cfg.weights_int8):
-            params = quantize_state_dict(
-                params, QUANT_LEAVES,
-                mode="channel" if cfg.weights_int8 else "block")
-        with torch.device(self.device):
-            module = Decoder(cfg)
-        if params is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            init_params(module, gen)
+        if module is not None:
+            if params is not None or weights is not None:
+                raise ValueError("module= serves the weights the module "
+                                 "holds: pass no params or weights")
+            self.module = module
         else:
-            module.load_state_dict(params)
-        # projections and the embedding table in the activation dtype;
-        # the norms and the LM head stay f32 (flax's param/compute
-        # dtypes), int8-resident projections their codes and f32 scales
-        for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)) \
-                    and m is not module.lm_head:
-                m.to(cfg.dtype)
-        self.module = module.eval().requires_grad_(False)
+            if params is None and weights is not None:
+                if weights.endswith(".gguf"):
+                    from .gguf import load_decoder_params
+                    params = load_decoder_params(weights, cfg)
+                else:
+                    params = load_safetensors_params(weights, cfg)
+            self.module = self._build(cfg, seed, params, mlp_cls)
         self._fn = DEVTIME.register("completer.trunk", self._forward)
         self._chunk_fn = DEVTIME.register("completer.chunk", self._chunk)
         self._commit_fn = DEVTIME.register("completer.paged_commit",
@@ -809,6 +812,32 @@ class CompletionModel:
         self._start = None            # (B,) left-pad offsets when batched
         self._batch = 0
         self._shapes: set[tuple] = set()
+
+    def _build(self, cfg: DecoderConfig, seed: int, params, mlp_cls):
+        """The trunk on this model's device: seeded or loaded weights,
+        a float state_dict quantized first for an int8 residency."""
+        if params is not None and (cfg.quantized or cfg.weights_int8):
+            params = quantize_state_dict(
+                params, QUANT_LEAVES,
+                mode="channel" if cfg.weights_int8 else "block")
+        with torch.device(self.device):
+            module = Decoder(cfg, mlp_cls)
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            init_params(module, gen)
+        else:
+            module.load_state_dict(params)
+        # projections and the embedding table in the activation dtype;
+        # the norms and the LM head stay f32 (flax's param/compute
+        # dtypes), int8-resident projections their codes and f32 scales
+        # (MoeMlp keeps its own dtypes: an f32 router, experts created
+        # in the activation dtype)
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)) \
+                    and m is not module.lm_head:
+                m.to(cfg.dtype)
+        return module.eval().requires_grad_(False)
 
     def bucket_for(self, length: int) -> int:
         for b in self.buckets:

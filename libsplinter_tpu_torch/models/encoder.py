@@ -293,8 +293,9 @@ def state_dict_from_flax(flax_params) -> dict:
     paths.  Dense kernels transpose from (in, out) to (out, in);
     `embedding` and norm `scale` leaves become `weight`.  The int8
     residencies' leaf sets ({q, scale}, {wq, wscale} and {wq, wscale,
-    bias}; models/quant.py) keep their names, layouts and dtypes (int8
-    codes, f32 scales)."""
+    bias}; models/quant.py) and stacked MoE experts' `*_experts_q`
+    codes keep their names, layouts and dtypes (int8 codes, f32
+    scales)."""
     tree = flax_params.get("params", flax_params)
     out: dict[str, torch.Tensor] = {}
 
@@ -311,7 +312,8 @@ def state_dict_from_flax(flax_params) -> dict:
             if isinstance(val, dict):
                 walk(val, path + [name])
                 continue
-            arr = np.asarray(val, np.float32)
+            arr = np.asarray(val, np.int8 if name.endswith("_experts_q")
+                             else np.float32)
             if name == "kernel":
                 arr, name = arr.T, "weight"
             elif name in ("embedding", "scale"):

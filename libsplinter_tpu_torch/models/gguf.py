@@ -21,8 +21,9 @@ reads the same files natively, and this module is its copy for the port:
     llama.cpp tensor names and hand it to the port's ``params_from_jax``
     bridges, which return the Encoder / Decoder state_dict.
 
-Mixtral-family (MoE) files are refused until the port has models/moe.py:
-they never load as a dense model.
+Mixtral-family (MoE) files ({arch}.expert_count, blk.N.ffn_gate_inp and
+the stacked blk.N.ffn_{gate,up,down}_exps) resolve to the port's
+MoeDecoderConfig and load onto models/moe.py's MoeMlp.
 """
 from __future__ import annotations
 
@@ -505,21 +506,15 @@ def _take(gf: GgufFile, aliases: list[str], *, required: bool = True):
     return None
 
 
-# the port has no MoE decoder yet: a file with experts is refused, never
-# served as a dense model
-MOE_NOT_PORTED = (
-    "Mixtral-family (MoE) GGUF checkpoints are not yet ported to the "
-    "torch package (ROADMAP Queue A, MoE: models/moe.py); the JAX "
-    "daemon, python -m libsplinter_tpu.engine.completer, serves them")
-
-
 def load_decoder_params(path: str, cfg) -> dict:
     """Map a llama-family GGUF onto the Decoder's state_dict (llama.cpp
     names: token_embd, blk.N.attn_{q,k,v,output}, blk.N.ffn_{gate,up,
     down}, blk.N.{attn,ffn}_norm, output_norm, output; no output means
-    a head tied to the embedding).  Builds the JAX package's flax tree
-    in numpy and bridges it (decoder.params_from_jax), so the two
-    packages load the same file into the same values."""
+    a head tied to the embedding; a Mixtral-family block's router
+    blk.N.ffn_gate_inp and stacked experts blk.N.ffn_{gate,up,down}_exps
+    map onto layer_N.moe).  Builds the JAX package's flax tree in numpy
+    and bridges it (decoder.params_from_jax), so the two packages load
+    the same file into the same values."""
     from .decoder import params_from_jax
 
     with GgufFile(path) as gf:
@@ -546,9 +541,7 @@ def load_decoder_params(path: str, cfg) -> dict:
             p["lm_head"] = {"kernel": p["tok_emb"]["embedding"].T.copy()}
         for i in range(cfg.layers):
             b = f"blk.{i}"
-            if f"{b}.ffn_gate_exps.weight" in gf.tensors:
-                raise NotImplementedError(f"{path}: {MOE_NOT_PORTED}")
-            p[f"layer_{i}"] = {
+            layer = {
                 "ln_attn": {"scale":
                             _take(gf, [f"{b}.attn_norm.weight"])
                             .astype(np.float32)},
@@ -561,10 +554,26 @@ def load_decoder_params(path: str, cfg) -> dict:
                 "ln_mlp": {"scale":
                            _take(gf, [f"{b}.ffn_norm.weight"])
                            .astype(np.float32)},
-                "gate": kern([f"{b}.ffn_gate.weight"]),
-                "up": kern([f"{b}.ffn_up.weight"]),
-                "down": kern([f"{b}.ffn_down.weight"]),
             }
+            if f"{b}.ffn_gate_exps.weight" in gf.tensors:
+                # Mixtral-family block: stacked experts (E, out, in) in
+                # the numpy view -> (E, in, out) for the einsums
+                # (moe.MoeMlp); the router is a plain Dense kernel
+                def exps(name):
+                    a = _take(gf, [f"{b}.{name}.weight"])
+                    return a.transpose(0, 2, 1).astype(np.float32)
+
+                layer["moe"] = {
+                    "router": kern([f"{b}.ffn_gate_inp.weight"]),
+                    "gate_experts": exps("ffn_gate_exps"),
+                    "up_experts": exps("ffn_up_exps"),
+                    "down_experts": exps("ffn_down_exps"),
+                }
+            else:
+                layer["gate"] = kern([f"{b}.ffn_gate.weight"])
+                layer["up"] = kern([f"{b}.ffn_up.weight"])
+                layer["down"] = kern([f"{b}.ffn_down.weight"])
+            p[f"layer_{i}"] = layer
     return params_from_jax({"params": p}, cfg)
 
 
@@ -906,7 +915,7 @@ def decoder_config_from_gguf(path_or_gguf, **overrides):
     architecture prefix is read from general.architecture so mistral/qwen
     exports (same llama graph, different prefix) work too.  Accepts a
     path or an already-open GgufFile; a file with experts
-    ({arch}.expert_count > 0) raises NotImplementedError."""
+    ({arch}.expert_count > 0) resolves to MoeDecoderConfig."""
     from .decoder import DecoderConfig
 
     with _MaybeClose(*_as_gguf(path_or_gguf)) as gf:
@@ -944,8 +953,13 @@ def decoder_config_from_gguf(path_or_gguf, **overrides):
         kw.update(overrides)
         n_experts = g("expert_count")
         if n_experts:
-            raise NotImplementedError(
-                f"{path}: {n_experts} experts; {MOE_NOT_PORTED}")
+            # Mixtral-family checkpoint: llama.cpp publishes
+            # {arch}.expert_count / expert_used_count and stacks the
+            # expert FFNs in blk.N.ffn_{gate,up,down}_exps
+            from .moe import MoeDecoderConfig
+            kw.setdefault("n_experts", int(n_experts))
+            kw.setdefault("top_k", int(g("expert_used_count", 2)))
+            return MoeDecoderConfig(**kw)
         return DecoderConfig(**kw)
 
 

@@ -26,8 +26,10 @@ bridged flax tree) becomes int8-resident at load.  Requantizing a Q8_0
 GGUF's dequantized weights is lossless: every block's largest element
 maps to +-127 again, so d and q come back exactly.
 
-The LM head and the embeddings stay float.  Stacked MoE experts wait
-for the MoE item of ROADMAP.md's Queue A.
+The LM head and the embeddings stay float.  Stacked MoE experts
+(models/moe.py) take the Q8_0 geometry in either residency:
+``{name}_q`` (E, din/32, 32, dout) int8 and ``{name}_scale`` (E,
+din/32, dout) f32, dequantized before the einsum (``expert_weight``).
 """
 from __future__ import annotations
 
@@ -113,6 +115,16 @@ class ChannelQuantDense(nn.Module):
             self.bias.zero_()
 
 
+def expert_weight(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Stacked expert weight (E, din, dout) in `dtype` from int8-resident
+    blocks, dequantized as QuantDense does: q (E, din/32, 32, dout)
+    int8, scale (E, din/32, dout) f32."""
+    e, nb, block, dout = q.shape
+    return (q.to(dtype) * scale[:, :, None, :].to(dtype)).reshape(
+        e, nb * block, dout)
+
+
 def _int8_uniform(shape, generator: torch.Generator, device):
     return torch.randint(-127, 128, tuple(shape), generator=generator,
                          device=device, dtype=torch.int32).to(torch.int8)
@@ -184,12 +196,6 @@ ENCODER_QUANT_LEAVES = ("qkv", "out", "gate", "up", "down")
 
 # -- tree walkers (flax-layout numpy dicts) ----------------------------------
 
-def _refuse_experts(name: str) -> None:
-    raise NotImplementedError(
-        f"stacked MoE expert weights ({name!r}) are not yet ported to "
-        "the torch package (ROADMAP Queue A, MoE: models/moe.py)")
-
-
 def quantize_encoder_params(params) -> dict:
     """A float encoder tree ({"params": ...}, flax layout, array-like
     leaves) -> the per-output-channel layout: every attention/MLP kernel
@@ -218,10 +224,12 @@ def quantize_decoder_params(params, block: int = QBLOCK,
                             mode: str = "block") -> dict:
     """A float decoder tree ({"params": ...}, flax layout) -> every
     attention/MLP kernel as {q, scale} (mode="block", QuantDense) or
-    {wq, wscale} (mode="channel", ChannelQuantDense); embeddings, norms
-    and the LM head stay float.  Idempotent: already-quantized leaves
-    (no bare {kernel}) pass through.  Returns {"params": tree} of numpy
-    arrays."""
+    {wq, wscale} (mode="channel", ChannelQuantDense); stacked MoE expert
+    tensors (`*_experts`, (E, din, dout)) become `*_experts_q` +
+    `*_experts_scale` (always block: they dequantize through
+    expert_weight); embeddings, norms, routers and the LM head stay
+    float.  Idempotent: already-quantized leaves (no bare {kernel})
+    pass through.  Returns {"params": tree} of numpy arrays."""
     if mode not in ("block", "channel"):
         raise ValueError(f"unknown quantization mode {mode!r}")
 
@@ -236,12 +244,21 @@ def quantize_decoder_params(params, block: int = QBLOCK,
                 out[k] = (quantize_channel_kernel(kern) if mode == "channel"
                           else quantize_kernel(kern, block))
             elif k.endswith("_experts") and not isinstance(v, dict):
-                _refuse_experts(k)
+                out.update(_quantize_experts(k, np.asarray(v), block))
             else:
                 out[k] = walk(v)
         return out
 
     return {"params": walk(params["params"])}
+
+
+def _quantize_experts(name: str, arr: np.ndarray,
+                      block: int) -> dict[str, np.ndarray]:
+    """(E, din, dout) float experts -> {name_q, name_scale}, each expert
+    through quantize_kernel."""
+    qs = [quantize_kernel(arr[e], block) for e in range(arr.shape[0])]
+    return {f"{name}_q": np.stack([x["q"] for x in qs]),
+            f"{name}_scale": np.stack([x["scale"] for x in qs])}
 
 
 def quantize_state_dict(sd: dict, leaves: tuple[str, ...],
@@ -250,12 +267,22 @@ def quantize_state_dict(sd: dict, leaves: tuple[str, ...],
     ``<path>.<leaf>.weight`` (out, in) whose leaf is in `leaves` becomes
     ``<path>.<leaf>.q``/``.scale`` (mode "block") or ``.wq``/``.wscale``
     (mode "channel"), from the same numpy quantizers on its (in, out)
-    kernel; biases and every other tensor pass through.  Idempotent."""
+    kernel; a float ``<path>.<name>_experts`` stack (E, din, dout)
+    becomes ``<name>_experts_q``/``_scale`` (block, in either mode, as
+    the walker does); biases and every other tensor pass through.
+    Idempotent."""
     if mode not in ("block", "channel"):
         raise ValueError(f"unknown quantization mode {mode!r}")
     out: dict[str, torch.Tensor] = {}
     for name, t in sd.items():
         parts = name.split(".")
+        if parts[-1].endswith("_experts") and t.dim() == 3:
+            prefix = ".".join(parts[:-1] + [""])
+            for leaf, arr in _quantize_experts(
+                    parts[-1], t.detach().float().cpu().numpy(),
+                    block).items():
+                out[prefix + leaf] = torch.from_numpy(arr)
+            continue
         if not (len(parts) >= 2 and parts[-1] == "weight"
                 and parts[-2] in leaves and t.dim() == 2):
             out[name] = t

@@ -263,13 +263,11 @@ def test_main_serves_on_the_cpu(st, monkeypatch):
 
 # explicit ids: each case keeps the id it had while the list also held
 # the flags served now — the KV tier (flags0, flags1), the disaggregated
-# lanes (flags2, flags3, flags11), int8 weights (flags8-flags10) and a
-# .gguf (flags12)
+# lanes (flags2, flags3, flags11), speculative decoding (flags6, flags7,
+# flags13, flags14), int8 weights (flags8-flags10) and a .gguf (flags12)
 @pytest.mark.parametrize("flags", [
     ["--tp", "2"], ["--ep", "2"],
-    ["--draft-weights", "d.gguf"], ["--draft-layers", "6"],
-    ["--gamma", "4"], ["--spec-min-acceptance", "0.5"],
-], ids=[f"flags{i}" for i in (4, 5, 6, 7, 13, 14)])
+], ids=[f"flags{i}" for i in (4, 5)])
 def test_flags_not_yet_ported_exit_nonzero(flags):
     with pytest.raises(SystemExit) as exc:
         tcomp.main(["--store", "/spt-never-opened", "--device", "cpu",

@@ -10,6 +10,7 @@ bridged JAX load) and the tokenizers (identical ids, pieces and
 decodes); 1e-5 for encoder vectors and decoder logits in f32, the
 forward passes' sums being taken in another order by the two
 frameworks."""
+import os
 import struct
 import uuid
 
@@ -355,7 +356,10 @@ def _decoder_file(path, cfg_j, p, *, tied=False, gtypes=(GGML_F32,),
                   vocab=None, experts=0):
     """A llama-family GGUF of the flax decoder tree p (f32 numpy), each
     layer's projections in gtypes[i % len(gtypes)], with the metadata
-    keys the JAX package's tests write and a unigram tokenizer."""
+    keys the JAX package's tests write and a unigram tokenizer.  With
+    experts, a Mixtral-family file: each layer's moe subtree as the
+    router blk.N.ffn_gate_inp and the stacked blk.N.ffn_{gate,up,down}_exps
+    (F32), and the expert_count / expert_used_count keys."""
     def g(i):
         return gtypes[i % len(gtypes)]
 
@@ -372,11 +376,17 @@ def _decoder_file(path, cfg_j, p, *, tied=False, gtypes=(GGML_F32,),
                          ("v", "attn_v"), ("out", "attn_output")):
             t[f"{b}.{dst}.weight"] = (lp["attn"][src]["kernel"].T.copy(),
                                       g(i))
+        if experts:
+            moe = lp["moe"]
+            t[f"{b}.ffn_gate_inp.weight"] = (
+                moe["router"]["kernel"].T.copy(), GGML_F32)
+            for name in ("gate", "up", "down"):
+                # (E, in, out) -> the file's (E, out, in) numpy view
+                t[f"{b}.ffn_{name}_exps.weight"] = (np.ascontiguousarray(
+                    moe[f"{name}_experts"].transpose(0, 2, 1)), GGML_F32)
+            continue
         for name in ("gate", "up", "down"):
             t[f"{b}.ffn_{name}.weight"] = (lp[name]["kernel"].T.copy(), g(i))
-        if experts:
-            t[f"{b}.ffn_gate_exps.weight"] = (np.stack(
-                [lp["gate"]["kernel"].T] * experts), GGML_F32)
     tokens, scores, types = vocab or _unigram_vocab(
         cfg_j.vocab_size, np.random.default_rng(0))
     md = [kv_str("general.architecture", "llama"),
@@ -526,25 +536,57 @@ def test_missing_metadata_is_loud(tmp_path):
         tgguf.load_tokenizer(str(p))
 
 
-def test_moe_file_is_refused_with_roadmap_pointer(tmp_path, monkeypatch):
-    """A Mixtral-family file: the JAX package resolves its MoE config;
-    the port refuses it at config derivation, at weight loading and in
-    the completer daemon, and never serves it as a dense model."""
-    cfg_j = jdec.DecoderConfig.tiny(dtype=jnp.float32)
+def test_moe_file_is_refused_with_roadmap_pointer(tmp_path):
+    """A Mixtral-family file, once refused by the port, now resolves and
+    loads as the JAX package does: the same MoeDecoderConfig (experts,
+    top-k and every other field), a state_dict equal leaf by leaf to the
+    bridged JAX load, logits within 1e-5 of the JAX MoE CompletionModel
+    on the same file, and completer.main serving it on the CPU."""
+    jmoe = pytest.importorskip("libsplinter_tpu.models.moe")
+    from libsplinter_tpu_torch.models import moe as tmoe
+
+    cfg_j = jmoe.MoeDecoderConfig.tiny(dtype=jnp.float32, n_experts=4)
+    params = _f32_tree(jmoe.MoeDecoder(cfg_j).init(
+        jax.random.PRNGKey(7), jnp.zeros((1, 8), jnp.int32),
+        jdec.init_cache(cfg_j, 1), jnp.int32(0)),
+        np.random.default_rng(7))
     path = tmp_path / "moe.gguf"
-    _decoder_file(path, cfg_j, _decoder_params(cfg_j, 7)["params"],
-                  experts=4)
-    assert type(jgguf.decoder_config_from_gguf(str(path))).__name__ == \
-        "MoeDecoderConfig"
-    pointer = "ROADMAP Queue A, MoE: models/moe.py"
-    with pytest.raises(NotImplementedError, match=pointer):
-        tgguf.decoder_config_from_gguf(str(path))
-    with pytest.raises(NotImplementedError, match=pointer):
-        tgguf.load_decoder_params(
-            str(path), tdec.DecoderConfig.tiny(dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match=pointer):
-        tcomp.main(["--store", "/spt-never-opened", "--device", "cpu",
-                    "--weights", str(path), "--oneshot"])
+    _decoder_file(path, cfg_j, params["params"], experts=cfg_j.n_experts)
+    jcfg = jgguf.decoder_config_from_gguf(str(path), dtype=jnp.float32)
+    tcfg = tgguf.decoder_config_from_gguf(str(path), dtype=torch.float32)
+    assert type(jcfg).__name__ == "MoeDecoderConfig"
+    assert isinstance(tcfg, tmoe.MoeDecoderConfig)
+    for f in ("vocab_size", "hidden", "layers", "heads", "kv_heads",
+              "mlp_dim", "max_len", "n_experts", "top_k"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
+    got = tgguf.load_decoder_params(str(path), tcfg)
+    _assert_state_dicts_equal(got, tdec.params_from_jax(
+        jgguf.load_decoder_params(str(path), jcfg), tcfg))
+    assert got["layer_1.moe.down_experts"].shape == (
+        4, cfg_j.mlp_dim, cfg_j.hidden)
+    jm = jmoe.moe_completion_model(jcfg, weights=str(path), buckets=(16,),
+                                   temp=0.0)
+    tm = tmoe.moe_completion_model(tcfg, weights=str(path), buckets=(16,),
+                                   temp=0.0, device="cpu")
+    prompt = np.array([1, 5, 9, 300, 17, 2, 44], np.int32)
+    np.testing.assert_allclose(tm.prefill(prompt), jm.prefill(prompt),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(tm.decode_one(7), jm.decode_one(7),
+                               rtol=0, atol=ATOL)
+    name = f"/spt-tgm-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    st = Store.create(name, nslots=64, max_val=2048, vec_dim=0)
+    try:
+        st.set("q", "hello experts")
+        st.label_or("q", P.LBL_INFER_REQ | P.LBL_WAITING)
+        st.bump("q")
+        assert tcomp.main(["--store", name, "--device", "cpu", "--weights",
+                           str(path), "--oneshot", "--max-new-tokens", "4",
+                           "--template", "auto"]) == 0
+        assert st.labels("q") & P.LBL_READY
+        assert st.get("q").rstrip(b"\0").startswith(b"<|im_start|>user")
+    finally:
+        st.close()
+        Store.unlink(name)
 
 
 # -------------------------------------------------------------- tokenizers

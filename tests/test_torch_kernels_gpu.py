@@ -412,6 +412,7 @@ def _paged_lengths(s, h, kh, page, pages):
     ("f32", 1, 8, 4, 128, 64, 16),        # D 128
     ("int4", 1, 6, 2, 128, 16, 40),       # D 128
     ("bf16", 3, 6, 2, 64, 16, 32),        # a stack crossing splits
+    ("bf16", 5, 12, 12, 64, 128, 16),     # the speculative verify stack
     ("bf16", 64, 12, 12, 64, 128, 16),    # the lane's suffix stack
 ])
 def test_paged_matches_plain(cuda, kind, s, h, kh, d, page, pages):

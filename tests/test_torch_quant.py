@@ -119,9 +119,17 @@ def test_decoder_walker_leaves_equal_jax(mode):
     _tree_equal(tq.quantize_decoder_params(got, mode=mode), got)
     with pytest.raises(ValueError, match="unknown quantization mode"):
         tq.quantize_decoder_params(params, mode="int3")
-    moe = {"params": {"layer_0": {"gate_experts": np.zeros((2, 32, 8))}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, MoE"):
-        tq.quantize_decoder_params(moe)
+    # stacked MoE experts: *_experts_q / *_experts_scale (block in
+    # either mode), equal to the JAX package's leaves, idempotent
+    w = np.random.default_rng(2).normal(size=(2, 64, 8)).astype(np.float32)
+    moe = {"params": {"layer_0": {"moe": {
+        "gate_experts": w, "router": {"kernel": w[0, :, :2].copy()}}}}}
+    got = tq.quantize_decoder_params(moe, mode=mode)
+    _tree_equal(got, jax.tree.map(np.asarray,
+                                  jq.quantize_decoder_params(moe, mode=mode)))
+    assert sorted(got["params"]["layer_0"]["moe"]) == [
+        "gate_experts_q", "gate_experts_scale", "router"]
+    _tree_equal(tq.quantize_decoder_params(got, mode=mode), got)
 
 
 @pytest.mark.parametrize("variant", ["nomic", "bert"])
