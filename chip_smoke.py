@@ -3,9 +3,10 @@ dense completion lane, its continuous (block-paged) completion lane,
 the encoder's contrastive trainer, GGUF checkpoints opened cold by the
 embedder and the completer, the completer's serving variants
 (int8-resident weights, the host-DRAM KV tier, the disaggregated
-prefill/decode lanes), speculative decoding and a Mixtral-family MoE
-checkpoint on one NVIDIA GPU, with every CUDA kernel held against its
-plain PyTorch version.
+prefill/decode lanes), speculative decoding, a Mixtral-family MoE
+checkpoint and the whole serving surface as supervised child processes
+on one NVIDIA GPU, with every CUDA kernel held against its plain
+PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -138,12 +139,35 @@ Phases (any failure exits non-zero and prints no result line):
      file, and again with --quantized (experts resident 0.5625 x bf16);
      the int8-expert model's first-step logits within 1e-5 of the float
      model on the dequantized weights in f32;
- 12. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+ 12. supervision: `python -m libsplinter_tpu_torch.engine.supervisor`
+     started from a directory without the package, over the embedder,
+     searcher, completer, pipeliner, telemetry and autoscaler lanes on a
+     file-backed store of 262,144 slots x 768-d (~250,000 unit vectors),
+     phase 8's two files as the model lanes' weights (the completer
+     --continuous --temp 0 --max-new-tokens 32, pinned to card 0), and
+     SPTPU_FAULT crashing the embedder at its first encode, the
+     searcher at its first gather and the completer at its first
+     commit: 32 texts embedded (16 in buckets >= 512; 8 against an
+     in-process model on the file, cosine >= 0.999), k = 10 and k = 200
+     searches equal to the plain top-k on the card, 8 prompts of
+     40-1500 bytes READY with 32 new tokens each and no page held, a
+     Lua RAG chain through the pipeliner whose hits equal a direct
+     search's, a manual scale to two embedder replicas (a burst of 32
+     served by both) and back to one (replica 1 drains and retires,
+     nothing stranded), telemetry rings for every lane; each of the
+     three model lanes restarted once and never down, the torch-free
+     lanes never; every child lane's kernel launches read from its
+     heartbeat (K1 in the embedder, K2 and K3 in the searcher, K4 and
+     K5 in the completer, each > 0); SIGTERM ends the supervisor with
+     exit 0 and no child left; the card's free memory before and after;
+ 13. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
      (K5, by query tokens and by splits: a launch of more than one
      split runs the combine kernel too), 7 (K6), 8 (K1, K2, K4, K5
-     from GGUF weights) and 9-11 (K4, K5 on each path), each counted
-     from 0 just before its path runs, phases 8-11 added to the sums.
+     from GGUF weights), 9-11 (K4, K5 on each path) and 12 (K1-K5 in
+     the supervised children, each process counting from its start),
+     each counted from 0 just before its path runs, phases 8-12 added
+     to the sums.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -156,6 +180,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3556,6 +3581,504 @@ def phase_moe(card, timings, tmp):
     return launches
 
 
+# -- phase 12: supervision ----------------------------------------------------
+
+SUP_SLOTS = 262144
+SUP_NEW_TOKENS = 32
+SUP_LANES = ("embedder", "searcher", "completer", "pipeliner", "telemetry",
+             "autoscaler")
+SUP_FAULT = ("embedder.encode:crash@1,searcher.gather:crash@1,"
+             "completer.commit:crash@1")
+# a child's first load on the card (torch import, kernel libraries, CUDA
+# context, a full-width model from its GGUF) before its first heartbeat
+SUP_GRACE_S = 120
+# the Lua RAG chain of tests/test_torch_pipeliner.py: embed the query,
+# search with its vector, complete on the top hit's text
+RAG_SCRIPT = """
+local qkey, text, k, ckey = ...
+local ok, err = splinter.submit_embed(qkey, text)
+if not ok then error(err) end
+local scratch = qkey .. "/q"
+splinter.set(scratch, "scratch")
+splinter.set_embedding(scratch, splinter.get_embedding(qkey))
+local hits, serr = splinter.submit_search(scratch, k)
+splinter.unset(scratch)
+if not hits then error(serr) end
+local out, cerr = splinter.submit_completion(
+    ckey, "ctx: " .. splinter.get(hits[1]) .. " q: " .. text)
+if not out then error(cerr) end
+return hits, out
+"""
+
+
+def _wait_for(pred, timeout, what, dt=0.1):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(dt)
+    check(pred(), f"supervision: timed out after {timeout}s waiting for "
+          f"{what}")
+
+
+def _read_json(st, key):
+    try:
+        return json.loads(st.get(key).rstrip(b"\0"))
+    except (KeyError, OSError, ValueError):
+        return None
+
+
+class _SupervisorWatch:
+    """Samples __supervisor_stats every 50 ms on a thread: every child pid
+    it ever names, when each lane first ran, when the supervisor saw each
+    crash and when the next generation's first heartbeat came."""
+
+    def __init__(self, st, P, t0):
+        self.st, self.P, self.t0 = st, P, t0
+        self.pids: set[int] = set()
+        self.first_run: dict[str, float] = {}
+        self.crash: dict[str, float] = {}
+        self.back: dict[str, float] = {}
+        self.stats = None
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._loop, daemon=True)
+        self._th.start()
+
+    def _loop(self):
+        while not self._stop.wait(0.05):
+            snap = _read_json(self.st, self.P.KEY_SUPERVISOR_STATS)
+            if snap is None:
+                continue
+            self.stats = snap
+            now = time.perf_counter() - self.t0
+            for lane, sec in snap.get("lanes", {}).items():
+                for rep in [sec] + list(sec.get("replicas", {}).values()):
+                    if rep.get("pid"):
+                        self.pids.add(int(rep["pid"]))
+                if sec.get("state") == "running":
+                    self.first_run.setdefault(lane, now)
+                if sec.get("last_exit") is not None:
+                    self.crash.setdefault(lane, now)
+                if (lane in self.crash and sec.get("restarts", 0) >= 1
+                        and sec.get("state") == "running"):
+                    self.back.setdefault(lane, now)
+
+    def lane(self, name):
+        return (self.stats or {}).get("lanes", {}).get(name, {})
+
+    def close(self):
+        self._stop.set()
+        self._th.join(timeout=5)
+
+
+def _sup_texts(rng, words, n_long, n_short, prefix):
+    """n_long texts of 300-900 vocab words (buckets 512 and 1024: K1)
+    and n_short of 8-200."""
+    spans = [(300, 900)] * n_long + [(8, 200)] * n_short
+    return {f"{prefix}/{i:02d}": " ".join(rng.choice(words,
+                                                      int(rng.integers(*s))))
+            for i, s in enumerate(spans)}
+
+
+def phase_supervision(card, timings, tmp):
+    """`python -m libsplinter_tpu_torch.engine.supervisor` over all six
+    lanes on one file-backed store, phase 8's full-width GGUF files as
+    the model lanes' weights, SPTPU_FAULT crashing the embedder, the
+    searcher and the completer once each: embeds, searches, completions,
+    a Lua RAG chain through the pipeliner, a scale-up to two embedder
+    replicas and back, then SIGTERM.  Returns each lane's kernel
+    launches, read from its heartbeat."""
+    import torch
+
+    from libsplinter_tpu_torch import T_VARTEXT, Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.embedder import Embedder
+    from libsplinter_tpu_torch.engine.pipeliner import submit_script
+    from libsplinter_tpu_torch.engine.searcher import (consume_result,
+                                                       submit_search)
+    from libsplinter_tpu_torch.engine.telemetry import read_history
+    from libsplinter_tpu_torch.models import (EmbeddingModel, GgufFile,
+                                              encoder_config_from_gguf,
+                                              load_tokenizer)
+
+    enc = os.path.join(tmp, "encoder-f16.gguf")
+    dec = os.path.join(tmp, "decoder-f16-q8-q4.gguf")
+    check(os.path.exists(enc) and os.path.exists(dec),
+          "supervision: phase 8's GGUF files are missing")
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="spt-smoke-sup-")
+    path = os.path.join(work, "lane.spt")
+    logf = open(os.path.join(work, "supervisor.log"), "w+")
+    st = proc = watch = ref_st = None
+    ref_name = f"/spt-smoke-supref{os.getpid()}"
+    ok = False
+    try:
+        st = Store.create(path, nslots=SUP_SLOTS, max_val=8192,
+                          vec_dim=LANE_DIM, persistent=True)
+        n_syn = _fill_lane(st, int(SUP_SLOTS * 0.9537), seed=5)
+        st.drain_dirty()     # the synthetic rows are no embed requests
+        fill_s = time.perf_counter() - t0
+        with GgufFile(enc) as gf:
+            ecfg = encoder_config_from_gguf(gf, out_dim=LANE_DIM)
+            etok = load_tokenizer(gf)
+            words = [w for w in gf.metadata["tokenizer.ggml.tokens"][5:]
+                     if not w.startswith("##")]
+        rng = np.random.default_rng(12)
+
+        # the supervisor as users start it, from a directory that does not
+        # hold the package: its own import comes from PYTHONPATH, its
+        # children's from the PYTHONPATH it hands them
+        env = dict(os.environ, SPTPU_FAULT=SUP_FAULT,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        argv = [sys.executable, "-m",
+                "libsplinter_tpu_torch.engine.supervisor", "--store", path,
+                "--persistent",
+                "--lanes", ",".join(SUP_LANES),
+                "--embedder-args", f"--weights {enc}",
+                "--completer-args",
+                f"--weights {dec} --continuous --temp 0 --max-new-tokens "
+                f"{SUP_NEW_TOKENS}",
+                "--pin-chips", "completer=0",
+                "--startup-grace-s", str(SUP_GRACE_S)]
+        t_sup = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=work, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        watch = _SupervisorWatch(st, P, t_sup)
+        log(f"supervision: file-backed store {SUP_SLOTS} slots x "
+            f"{LANE_DIM}-d, {n_syn} synthetic unit vectors in {fill_s:.1f}s; "
+            f"supervisor pid {proc.pid} over {', '.join(SUP_LANES)}, "
+            f"SPTPU_FAULT={SUP_FAULT}, --pin-chips completer=0, startup "
+            f"grace {SUP_GRACE_S}s; card free {free0 / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB before")
+
+        # 3. embed: 32 texts, 16 of them in buckets >= 512 (K1); the
+        # embedder's first encode crashes it.  The 8 completions of step
+        # 5 go in at the same moment: the two lanes' crashes and
+        # restarts overlap (the steps' checks run in order below)
+        texts = _sup_texts(rng, words, 16, 16, "sup")
+        prompts = {f"ask/{i}": _sup_prompt(rng, n) for i, n in
+                   enumerate((40, 150, 300, 500, 700, 900, 1200, 1500))}
+        t_emb = time.perf_counter()
+        for key, text in texts.items():
+            st.set(key, text)
+            st.set_type(key, T_VARTEXT)
+            st.label_or(key, P.LBL_EMBED_REQ | P.LBL_WAITING)
+            st.bump(key)
+        _ask(st, P, prompts)
+        busy = P.LBL_EMBED_REQ | P.LBL_WAITING
+        _wait_for(lambda: not any(st.labels(k) & busy for k in texts), 300,
+                  "the 32 embeds")
+        embed_s = time.perf_counter() - t_emb
+        for key in texts:
+            v = st.vec_get(key)
+            check(np.isfinite(v).all()
+                  and abs(float(np.linalg.norm(v)) - 1.0) < 1e-3,
+                  f"supervised embed {key}: norm {np.linalg.norm(v)}")
+        _wait_for(lambda: watch.lane("embedder").get("restarts", 0) >= 1,
+                  30, "the embedder's restart in __supervisor_stats")
+        check(watch.lane("embedder").get("state") != "down",
+              "supervision: the embedder's breaker opened")
+        # the same file in-process on the card: what one replica commits
+        ref_st = Store.create(ref_name, nslots=4096, max_val=8192,
+                              vec_dim=LANE_DIM)
+        ref_emb = Embedder(ref_st, model=EmbeddingModel(ecfg, weights=enc,
+                                                        device="cuda"),
+                           tokenizer=etok, max_ctx=ecfg.max_len)
+        ref_emb.attach()
+
+        def ref_cosines(keys):
+            for key in keys:
+                ref_st.set(key, st.get(key).rstrip(b"\0"))
+                ref_st.set_type(key, T_VARTEXT)
+                ref_st.label_or(key, P.LBL_EMBED_REQ)
+                ref_st.bump(key)
+            check(ref_emb.run_once() == len(keys), "in-process reference")
+            return {k: float(st.vec_get(k) @ ref_st.vec_get(k))
+                    for k in keys}
+
+        some = list(texts)[::4]                      # 8: 4 long, 4 short
+        cos = ref_cosines(some)
+        check(min(cos.values()) >= 0.999, f"supervised embeds against the "
+              f"in-process model: cosines {cos}")
+        log(f"supervised embed: 32 texts committed in {embed_s:.2f}s "
+            f"(the first encode crashed the lane: restarts "
+            f"{watch.lane('embedder')['restarts']}); 8 against the "
+            f"in-process model on the file: cosine >= "
+            f"{min(cos.values()):.6f} [{card}]")
+
+        # 4. search: k = 10 (K2) and k = 200 (K3); the searcher's first
+        # gather crashes it
+        srcs = list(texts)[16:18]
+        for j, src in enumerate(srcs):
+            st.set(f"__q/sup{j}", "q")
+            st.vec_set(f"__q/sup{j}", st.vec_get(src))
+        t_srch = time.perf_counter()
+        recs = {k: {f"__q/sup{j}": submit_search(st, f"__q/sup{j}", k,
+                                                 timeout_ms=300_000)
+                    for j in range(len(srcs))} for k in (10, 200)}
+        search_s = time.perf_counter() - t_srch
+        _wait_for(lambda: watch.lane("searcher").get("restarts", 0) >= 1,
+                  30, "the searcher's restart")
+        check(watch.lane("searcher").get("state") != "down",
+              "supervision: the searcher's breaker opened")
+        # a copy of the lane as it stands now, on the card
+        lane = torch.from_numpy(np.array(st.vectors.view(np.ndarray))).cuda()
+        base = torch.from_numpy(P.candidate_mask(st, 0)).cuda()
+        for j in range(len(srcs)):
+            base[st.find_index(f"__q/sup{j}")] = 0.0
+        swaps = 0
+        for k, by_key in recs.items():
+            for j, src in enumerate(srcs):
+                key = f"__q/sup{j}"
+                rec = by_key[key]
+                check(rec is not None and "err" not in rec
+                      and len(rec["keys"]) == k and rec["keys"][0] == src,
+                      f"supervised search {key} k={k}: {rec}")
+                want, _, all_s, all_i = _plain_topk_keys(
+                    st, lane, st.vec_get(src), base,
+                    16 if k == 10 else 204, k)
+                swaps += _same_ranking(rec["i"], rec["s"], want, all_s,
+                                       all_i)
+                consume_result(st, key)
+        del lane, base
+        torch.cuda.empty_cache()
+        log(f"supervised search: k=10 and k=200 x {len(srcs)} in "
+            f"{search_s:.2f}s (the lane's upload included; the searcher "
+            f"crashed at its first gather: restarts "
+            f"{watch.lane('searcher')['restarts']}); rows equal the plain "
+            f"top-k on the card ({swaps} near-tie swaps) [{card}]")
+
+        # 5. complete: 8 prompts of 40-1500 bytes (submitted with the
+        # embeds); the completer crashes at its first commit and the next
+        # generation re-serves all 8
+        cbusy = P.LBL_INFER_REQ | P.LBL_WAITING | P.LBL_SERVICING
+        _wait_for(lambda: all(st.labels(k) & P.LBL_READY
+                              and not st.labels(k) & cbusy
+                              for k in prompts), 300, "the 8 completions")
+        complete_s = time.perf_counter() - t_emb
+        _wait_for(lambda: watch.lane("completer").get("restarts", 0) >= 1,
+                  30, "the completer's restart")
+        check(watch.lane("completer").get("state") != "down",
+              "supervision: the completer's breaker opened")
+        for key, text in prompts.items():
+            got = st.get(key).rstrip(b"\0")
+            check(text.encode() in got, f"{key}: the prompt is not in the "
+                  f"served slot")
+
+        def settled():
+            hb = _read_json(st, P.KEY_COMPLETE_STATS)
+            return (hb is not None and hb.get("completions") == len(prompts)
+                    and hb.get("live_tokens") == 0 and hb)
+
+        _wait_for(settled, 30, "the completer's heartbeat after the drain")
+        chb = settled()
+        held = chb["pages_used"] - chb.get("prefix_evictable", 0)
+        check(chb["tokens"] == SUP_NEW_TOKENS * len(prompts)
+              and chb["aborts"] == 0 and held == 0,
+              f"completer heartbeat: tokens {chb['tokens']} (want "
+              f"{SUP_NEW_TOKENS * len(prompts)}), aborts {chb['aborts']}, "
+              f"{held} pages held by a row ({chb['pages_used']} used, "
+              f"{chb.get('prefix_evictable')} reclaimable prefix pages)")
+        log(f"supervised completion: 8 prompts of 40-1500 bytes READY "
+            f"{complete_s:.2f}s after they were submitted, each with {SUP_NEW_TOKENS} new tokens "
+            f"(the first generation crashed at its first commit and its "
+            f"successor reclaimed {chb['reclaimed']} stranded rows); no "
+            f"page held after the drain [{card}]")
+
+        # 6. one Lua RAG chain through the pipeliner
+        qtext = texts[srcs[1]]
+        t_rag = time.perf_counter()
+        rag = submit_script(st, "__rag/sup", script=RAG_SCRIPT,
+                            args=["__rag/q", qtext, 5, "rag/answer"],
+                            timeout_ms=300_000)
+        rag_s = time.perf_counter() - t_rag
+        check(rag is not None and rag.get("ok") is True,
+              f"RAG chain: {rag}")
+        hits = rag["ret"][0]
+        st.set("__q/rag", "q")
+        st.vec_set("__q/rag", st.vec_get("__rag/q"))
+        direct = submit_search(st, "__q/rag", 5, timeout_ms=300_000)
+        check(direct is not None and direct.get("keys") == hits
+              and hits[0] == srcs[1],
+              f"RAG chain hits {hits} != a direct search's {direct}")
+        consume_result(st, "__q/rag")
+        check(st.labels("rag/answer") & P.LBL_READY
+              and not st.labels("rag/answer") & cbusy,
+              "RAG chain: the completion is not READY")
+        log(f"supervised pipeline: a Lua RAG chain (embed -> k=5 search -> "
+            f"complete) in {rag_s:.2f}s, its hits equal a direct search's, "
+            f"the completion READY [{card}]")
+
+        def fresh(key, after):
+            hb = _read_json(st, key)
+            return hb if hb is not None and hb["ts"] > after else None
+
+        # 7. scale the embedder to two replicas, a burst, then back to one
+        P.write_scale_target(st, "embedder", 2, src="manual")
+        t_up = time.perf_counter()
+
+        def promoted():
+            rec = P.read_stripe_map(st, "embedder")
+            return (rec is not None and "1" in rec.get("owners", {})
+                    and not rec.get("pending"))
+
+        _wait_for(promoted, 180, "replica 1's promotion")
+        up_s = time.perf_counter() - t_up
+        t_hb = time.time()
+        _wait_for(lambda: fresh(P.KEY_EMBED_STATS, t_hb), 30,
+                  "the embedder's heartbeat before the burst")
+        before = fresh(P.KEY_EMBED_STATS, t_hb)["embedded"]
+        burst = _sup_texts(rng, words, 8, 24, "burst")
+        t_burst = time.perf_counter()
+        for key, text in burst.items():
+            st.set(key, text)
+            st.set_type(key, T_VARTEXT)
+            st.label_or(key, P.LBL_EMBED_REQ | P.LBL_WAITING)
+            st.bump(key)
+        _wait_for(lambda: not any(st.labels(k) & busy for k in burst), 300,
+                  "the burst")
+        burst_s = time.perf_counter() - t_burst
+        r1_key = P.replica_stats_key(P.KEY_EMBED_STATS, 1)
+
+        def shares():
+            h0, h1 = _read_json(st, P.KEY_EMBED_STATS), _read_json(st,
+                                                                  r1_key)
+            if h0 is None or h1 is None:
+                return None
+            return h0["embedded"] - before, h1["embedded"], h1
+
+        _wait_for(lambda: (s := shares()) is not None
+                  and s[0] + s[1] >= len(burst), 30,
+                  "both replicas' heartbeats after the burst")
+        n0, n1, r1_hb = shares()
+        check(n0 > 0 and n1 > 0, f"burst split {n0} / {n1}: a replica "
+              f"served nothing")
+        cos = ref_cosines(list(burst))
+        check(min(cos.values()) >= 0.999, f"burst vectors against the "
+              f"in-process model: min cosine {min(cos.values())}")
+        P.write_scale_target(st, "embedder", 1, src="manual")
+        t_down = time.perf_counter()
+        _wait_for(lambda: watch.stats is not None
+                  and watch.stats.get("retired", 0) >= 1
+                  and "replicas" not in watch.lane("embedder")
+                  and watch.lane("embedder").get("r") == 1, 120,
+                  "replica 1's retirement")
+        down_s = time.perf_counter() - t_down
+        check(all(not st.labels(k) & busy for k in burst),
+              "a burst row was stranded")
+        rings = {ln: read_history(st, ln) is not None
+                 for ln in ("embedder", "searcher", "completer",
+                            "pipeliner")}
+        check(all(rings.values()), f"telemetry rings missing: {rings}")
+        log(f"supervised scale: replica 1 promoted {up_s:.2f}s after the "
+            f"target; a burst of 32 in {burst_s:.2f}s split {n0} / {n1}, "
+            f"cosine >= {min(cos.values()):.6f} against the in-process "
+            f"model; replica 1 drained and retired {down_s:.2f}s after the "
+            f"target of 1; telemetry rings for {', '.join(rings)} [{card}]")
+
+        # 8. the children's kernel launches, from their heartbeats
+        t_read = time.time() + 0.5
+        launches = {}
+        for lane, key in (("embedder", P.KEY_EMBED_STATS),
+                          ("searcher", P.KEY_SEARCH_STATS),
+                          ("completer", P.KEY_COMPLETE_STATS)):
+            _wait_for(lambda: fresh(key, t_read), 30, f"{lane}'s heartbeat")
+            launches[lane] = dict(fresh(key, t_read)["kernels"])
+        launches["embedder.r1"] = dict(r1_hb["kernels"])
+        want = {"embedder": ("flash_fwd",),
+                "searcher": ("fused_topk", "cosine_scores"),
+                "completer": ("causal_fwd", "paged_fwd")}
+        for lane, names in want.items():
+            for name in names:
+                check(launches[lane][name] > 0, f"supervised {lane}: "
+                      f"{name} never launched: {launches[lane]}")
+        restarts = {ln: watch.lane(ln).get("restarts") for ln in SUP_LANES}
+        check(all(restarts[ln] == 0 for ln in ("pipeliner", "telemetry",
+                                               "autoscaler")),
+              f"a torch-free lane restarted: {restarts}")
+
+        # shutdown: SIGTERM, exit 0, no child left
+        watch.close()
+        pids = set(watch.pids)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc == 0, f"supervisor exit code {rc} after SIGTERM")
+        _wait_for(lambda: not any(P.pid_alive(p) for p in pids), 30,
+                  "every child to exit")
+        torch.cuda.synchronize()
+        free1, _ = torch.cuda.mem_get_info()
+        wall = time.perf_counter() - t0
+        walls = {ln: {"first_running_s": watch.first_run.get(ln),
+                      "restart_s": (watch.back[ln] - watch.crash[ln]
+                                    if ln in watch.back else None)}
+                 for ln in SUP_LANES}
+        log(f"supervision: {len(pids)} child processes, all gone after "
+            f"SIGTERM (exit 0); restarts {restarts}; restart wall (crash "
+            f"seen -> next generation's first heartbeat seen) "
+            + ", ".join(f"{ln} {w['restart_s']:.2f}s" for ln, w in
+                        walls.items() if w["restart_s"] is not None)
+            + "; first running after spawn "
+            + ", ".join(f"{ln} {w['first_running_s']:.2f}s" for ln, w in
+                        walls.items() if w["first_running_s"] is not None)
+            + f"; card free {free1 / 2**30:.2f} GiB after (before "
+            f"{free0 / 2**30:.2f}) [{card}]")
+        log(f"supervision: kernel launches by lane {json.dumps(launches)}")
+        log(f"supervision phase: {wall:.1f}s [{card}]")
+        timings["supervision"] = {
+            "wall_s": wall, "fill_s": fill_s, "embed_s": embed_s,
+            "search_s": search_s, "complete_s": complete_s, "rag_s": rag_s,
+            "scale_up_s": up_s, "burst_s": burst_s, "scale_down_s": down_s,
+            "restarts": restarts, "walls": walls, "burst_split": [n0, n1],
+            "free_gib_before": free0 / 2**30,
+            "free_gib_after": free1 / 2**30}
+        ok = True
+        out = {}
+        for counts in launches.values():
+            for name, n in counts.items():
+                out[name] = out.get(name, 0) + n
+        return launches, out
+    finally:
+        if watch is not None:
+            watch.close()
+        if not ok and st is not None:
+            print(f"__supervisor_stats: "
+                  f"{_read_json(st, P.KEY_SUPERVISOR_STATS)}",
+                  file=sys.stderr)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()          # the supervisor ends its children
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        if not ok:
+            logf.seek(0)
+            tail = logf.read()[-6000:]
+            print(f"supervisor log (tail):\n{tail}", file=sys.stderr)
+        logf.close()
+        if st is not None:
+            st.close()
+            Store.unlink(path, persistent=True)
+        if ref_st is not None:
+            ref_st.close()
+            Store.unlink(ref_name)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _sup_prompt(rng, nbytes):
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
+                                int(rng.integers(2, 9)))) for _ in range(200)]
+    out = ""
+    while len(out) < nbytes:
+        out += rng.choice(words) + " "
+    return out[:nbytes].strip()
+
+
 def _chatml_ids(path, text):
     """`text` rendered with chatml and encoded by the file's tokenizer,
     as the daemon encodes a request."""
@@ -3643,6 +4166,13 @@ def main() -> int:
                 for k, v in path.items():
                     counts[k] += v
             timings[key] = paths
+        # the whole serving surface as supervised child processes: each
+        # lane's launches come from its own heartbeat, every child
+        # starting from 0 after this point
+        sup, sup_counts = phase_supervision(card, timings, tmp)
+        for k, v in sup_counts.items():
+            counts[k] += v
+        timings["supervision_launches"] = sup
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

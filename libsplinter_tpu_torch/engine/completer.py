@@ -54,6 +54,7 @@ import dataclasses
 import errno
 import itertools
 import logging
+import os
 import time
 from collections import deque
 from typing import Callable, Iterator
@@ -64,6 +65,7 @@ from .. import _native as N
 from ..obs.devtime import DEVTIME
 from ..obs.recorder import FlightRecorder
 from ..obs.spans import SpanWriter
+from ..ops._cuda import LAUNCHES
 from ..store import Store
 from ..utils import faults
 from ..utils.faults import fault
@@ -1811,6 +1813,9 @@ class Completer:
             devtime.update(DEVTIME.heartbeat_section("completer"))
         if devtime:
             payload["devtime"] = devtime
+        # this process's hand-written kernel launches by name (the
+        # counterpart of the JAX lanes' device-program ledger in devtime)
+        payload["kernels"] = dict(LAUNCHES)
         self._lane_payload(payload)
         DEVTIME.flush(self.store)
         if tracer.enabled:
@@ -2080,6 +2085,12 @@ def main(argv: list[str] | None = None) -> int:
             "models/gguf_writer.py if needed")
 
     logging.basicConfig(level=logging.INFO)
+    if os.environ.get("SPTPU_CHIP_PIN"):
+        # supervisor lane placement (--pin-chips): prefill and decode
+        # replicas land on disjoint cards
+        from ..utils.device import apply_chip_pin
+        args.device = str(apply_chip_pin(os.environ["SPTPU_CHIP_PIN"],
+                                         args.device))
     from ..models import (CompletionModel, DecoderConfig, GgufFile,
                           MoeDecoderConfig, SpeculativeCompletionModel,
                           decoder_config_from_gguf, load_tokenizer,

@@ -41,6 +41,7 @@ from .. import _native as N
 from ..obs.devtime import DEVTIME
 from ..obs.recorder import FlightRecorder
 from ..obs.spans import SpanWriter
+from ..ops._cuda import LAUNCHES
 from ..store import Store
 from ..utils import faults
 from ..utils.faults import fault
@@ -1165,6 +1166,9 @@ class Embedder:
         devtime = DEVTIME.heartbeat_section("embedder")
         if devtime:
             payload["devtime"] = devtime
+        # this process's hand-written kernel launches by name (the
+        # counterpart of the JAX lanes' device-program ledger in devtime)
+        payload["kernels"] = dict(LAUNCHES)
         DEVTIME.flush(self.store)
         for k in ("device_wait_ms", "overlap_ms", "commit_host_ms"):
             payload[k] = round(payload[k], 3)

@@ -50,6 +50,7 @@ from ..obs.devtime import DEVTIME
 from ..obs.recorder import FlightRecorder
 from ..obs.spans import SpanWriter, sweep_span_stages
 from ..store import Store
+from ..ops._cuda import LAUNCHES
 from ..ops.similarity import fetch_topk
 from ..utils import faults
 from ..utils.device import DeviceFuture
@@ -909,6 +910,9 @@ class Searcher:
         devtime = DEVTIME.heartbeat_section("searcher")
         if devtime:
             payload["devtime"] = devtime
+        # this process's hand-written kernel launches by name (the
+        # counterpart of the JAX lanes' device-program ledger in devtime)
+        payload["kernels"] = dict(LAUNCHES)
         DEVTIME.flush(self.store)
         if tracer.enabled:
             P.attach_trace_sections(payload, tracer, self.recorder,

@@ -265,10 +265,13 @@ class Store:
         n = self.nslots
         buf = C.create_string_buffer(n * N.KEY_MAX)
         count = _ck(self._lib.spt_list(self._h, buf, n))
+        # one copy of the buffer for all keys: buf.raw copies all of it
+        # (n * KEY_MAX bytes), so reading it per key is quadratic
+        raw = buf.raw
         out = []
         for i in range(count):
-            raw = buf.raw[i * N.KEY_MAX:(i + 1) * N.KEY_MAX]
-            out.append(raw.split(b"\0", 1)[0].decode(errors="replace"))
+            key = raw[i * N.KEY_MAX:(i + 1) * N.KEY_MAX]
+            out.append(key.split(b"\0", 1)[0].decode(errors="replace"))
         return out
 
     def __contains__(self, key: str) -> bool:

@@ -12,8 +12,10 @@ the DECODE_READY flip.  Then one cross-package handoff: the JAX
 package's PrefillLane hands rows to the port's DecodeLane over one
 store, the adopted rows' first decode logits within 1e-4 of the port's
 own prefill (f32), which shows the two wire formats are one.  The
-tensor-parallel case and the supervised crash drills wait for the
-multi-GPU and supervision items of ROADMAP.md's Queue A."""
+tensor-parallel case waits for the multi-GPU item of ROADMAP.md's Queue
+A; the supervised crash drills (prefill handoff, decode adopt) run both
+lanes' entry points under the port's supervisor in
+tests/test_torch_supervised_drills.py."""
 import os
 import threading
 import time

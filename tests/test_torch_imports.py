@@ -17,12 +17,16 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "safetensors", "libsplinter_tpu")
 
 # modules copied verbatim from the JAX package (imports are relative,
 # so not even those changed)
-VERBATIM = ("_native.py", "store.py", "utils/faults.py",
+VERBATIM = ("_native.py", "utils/faults.py",
             "engine/protocol.py", "engine/qos.py", "engine/resident.py",
             "engine/client.py", "engine/prefix_cache.py", "obs/hist.py",
             "obs/recorder.py", "obs/prom.py", "obs/spans.py",
             "models/gguf_writer.py", "engine/kv_tier.py",
-            "engine/disagg.py")
+            "engine/disagg.py", "engine/telemetry.py",
+            "engine/autoscaler.py", "engine/pipeliner.py",
+            "scripting/__init__.py", "scripting/microlua.py",
+            "scripting/sandbox.py", "scripting/library.py",
+            "scripting/lua_host.py")
 
 # the parts of models/gguf.py copied unchanged from the JAX package's:
 # the container reader, every ggml dequantizer and the tokenizers (the
@@ -93,6 +97,51 @@ print(len(mods))
 def test_copies_stay_verbatim(rel):
     assert filecmp.cmp(PORT / rel, ROOT / "libsplinter_tpu" / rel,
                        shallow=False), rel
+
+
+def _without_store_list(path):
+    """store.py's text with Store.list's lines taken out."""
+    text = path.read_text()
+    tree = ast.parse(text)
+    cls = next(n for n in tree.body
+               if isinstance(n, ast.ClassDef) and n.name == "Store")
+    fn = next(n for n in cls.body
+              if isinstance(n, ast.FunctionDef) and n.name == "list")
+    lines = text.splitlines()
+    return lines[:fn.lineno - 1] + lines[fn.end_lineno:]
+
+
+def test_store_copy_differs_only_in_list():
+    """store.py is the JAX package's but for Store.list, which the port
+    reads in one copy of the key buffer (the JAX package's copies the
+    whole buffer once per key: minutes at 250,000 keys, where the
+    supervisor and the searcher list keys every poll)."""
+    assert _without_store_list(PORT / "store.py") == \
+        _without_store_list(ROOT / "libsplinter_tpu" / "store.py")
+
+
+def test_store_list_matches_jax_package():
+    import os
+    import uuid
+
+    import libsplinter_tpu
+
+    from libsplinter_tpu_torch import Store
+    name = f"/spt-tlist-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    st = Store.create(name, nslots=1024, max_val=64, vec_dim=0)
+    try:
+        for i in range(700):
+            st.set(f"k/{i}" + "x" * (i % 40), b"v")
+        ref = libsplinter_tpu.Store.open(name)
+        try:
+            want = ref.list()
+        finally:
+            ref.close()
+        got = st.list()
+        assert got == want and len(got) == 700
+    finally:
+        st.close()
+        Store.unlink(name)
 
 
 @pytest.mark.parametrize("name", GGUF_COPIED)

@@ -16,8 +16,9 @@ stranded host chain pruned, tier on vs off byte-identical on the
 continuous lane, the warm restart, every torn-snapshot class giving the
 JAX package's typed reason (float and int4-packed pools), the geometry
 mismatch, a raising restore falling back cold, and the reason reaching
-the heartbeat.  The supervised crash drills wait for the supervision
-item of ROADMAP.md's Queue A."""
+the heartbeat.  The supervised crash drills (mid-spill, mid-readmit,
+mid-restore) run the completer's entry point under the port's supervisor
+in tests/test_torch_supervised_drills.py."""
 import json
 import os
 import threading
