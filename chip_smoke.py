@@ -4,9 +4,9 @@ the encoder's contrastive trainer, GGUF checkpoints opened cold by the
 embedder and the completer, the completer's serving variants
 (int8-resident weights, the host-DRAM KV tier, the disaggregated
 prefill/decode lanes), speculative decoding, a Mixtral-family MoE
-checkpoint and the whole serving surface as supervised child processes
-on one NVIDIA GPU, with every CUDA kernel held against its plain
-PyTorch version.
+checkpoint, the whole serving surface as supervised child processes
+and the operator CLI over it on one NVIDIA GPU, with every CUDA kernel
+held against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -23,8 +23,9 @@ Phases (any failure exits non-zero and prints no result line):
      f32, its row max/sum for K6 against the plain helper and its output
      identical with and without them; K6, its backward, at B=8 S=2048
      and B=16 S=512, bf16 and f32, with SDPA's backward as the
-     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores at Q = 8, 32
-     and 256 and K2 fused top-k at Q = 8, 32 and 256 by k = 16 and 128,
+     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores at Q = 1
+     (the CLI's local search, exact and mxu_bf16), 8, 32 and 256 and K2
+     fused top-k at Q = 8, 32 and 256 by k = 16 and 128,
      over a 1,048,576 x 768 f32 lane, with their share of the bound; K4
      causal prefill
      attention over a 2048-slot cache at B=8 S=1024, B=1 S=2048, a
@@ -44,7 +45,8 @@ Phases (any failure exits non-zero and prints no result line):
      wrappers' host work, so events around eager calls would time the
      host (that pace is printed beside);
   4. end to end: a file-backed store with 1,048,576 slots of 768-d
-     vectors (~1,000,000 committed through the store's batch commit),
+     vectors (~1,000,000 committed through the store's batch commit;
+     the file stays for phase 13),
      the embedder at full Nomic-Embed-Text-v1.5 width (bf16, seeded
      random weights) draining ~64 texts over buckets 16..2048 (so K1
      runs), a few vectors checked against the same model in f32 on the
@@ -160,14 +162,39 @@ Phases (any failure exits non-zero and prints no result line):
      heartbeat (K1 in the embedder, K2 and K3 in the searcher, K4 and
      K5 in the completer, each > 0); SIGTERM ends the supervisor with
      exit 0 and no child left; the card's free memory before and after;
- 13. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+ 13. cli: `python -m libsplinter_tpu_torch.cli --store <phase 4's
+     file> --persistent supervise --lanes embedder,searcher,completer,
+     pipeliner,telemetry` started from a directory without the package
+     (phase 8's files as the weights, the completer --continuous --temp
+     0 --max-new-tokens 32), then the CLI against it, as subprocesses
+     and in this process through cli.main.main: `health` (its wall is
+     the CLI's start-up) listing every lane's heartbeat; `ingest` of 64
+     texts (16 in buckets >= 512) through one REPL, all 64 vectors
+     landed, 8 against an in-process model on the file (cosine >=
+     0.999); `search --local --json` in this process (one K3 launch at
+     Q = 1; its upload, K3, distances and argsort timed from inside)
+     equal to the plain version; `search --json` at k = 10 and --limit
+     200 through the searcher, equal to the plain top-k; one REPL
+     session fed on stdin with four local searches (the card lane
+     uploaded once and then only dirty rows staged; --cpu within 1e-5
+     / 1e-4, --fast keeping every row whose gaps exceed 4e-2);
+     `metrics` with each model lane's kernel_* counts, `metrics
+     --history`, `top --once`, `scale set` / `scale status`; a Lua RAG
+     chain through `pipeline run` whose hits equal a direct search's,
+     its record read back by `lua`, `wasm` of tests/test_wasm.py's host
+     module; `loadgen` for 10 s of mixed traffic at 3 requests/s with
+     nothing lost (p50/p99 by lane), `trace export`; the children's
+     launches (K1, K2, K3, K5) from their heartbeats; SIGTERM to
+     `spt supervise`: exit 0, no child left;
+ 14. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
      (K5, by query tokens and by splits: a launch of more than one
      split runs the combine kernel too), 7 (K6), 8 (K1, K2, K4, K5
-     from GGUF weights), 9-11 (K4, K5 on each path) and 12 (K1-K5 in
-     the supervised children, each process counting from its start),
-     each counted from 0 just before its path runs, phases 8-12 added
-     to the sums.
+     from GGUF weights), 9-11 (K4, K5 on each path), 12 (K1-K5 in
+     the supervised children, each process counting from its start)
+     and 13 (K3 in the CLI's own process, K1-K5 in the children), each
+     counted from 0 just before its path runs, phases 8-13 added to the
+     sums.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -179,6 +206,7 @@ import dataclasses
 import json
 import os
 import re
+import shlex
 import shutil
 import signal
 import subprocess
@@ -969,15 +997,19 @@ def phase_search_kernels(results, n):
     g = torch.Generator(device="cuda").manual_seed(7)
     lane = torch.randn(n, d, generator=g, device="cuda")
     mask = (torch.rand(n, generator=g, device="cuda") > 0.01).float()
-    for nq in (8, 32, 256):
+    # Q = 1 is the CLI's local search (exact and --fast); 8, 32 and 256
+    # the searcher's query tiles
+    for nq, bf16 in ((1, False), (1, True), (8, False), (32, False),
+                     (256, False)):
         qry = torch.randn(nq, d, generator=g, device="cuda")
-        got = cosine_scores_cuda(lane, qry, mask)
-        ref = _cosine_scores_plain(lane, qry, mask)
+        got = cosine_scores_cuda(lane, qry, mask, mxu_bf16=bf16)
+        ref = _cosine_scores_plain(lane, qry, mask, mxu_bf16=bf16)
         err = (got - ref).abs().max().item()
-        check(err <= F32_ATOL, f"K3 Q={nq}: max err {err}")
-        ms = cuda_ms(lambda: cosine_scores_cuda(lane, qry, mask), reps=10)
-        plain_ms = cuda_ms(lambda: _cosine_scores_plain(lane, qry, mask),
-                           reps=5)
+        check(err <= F32_ATOL, f"K3 Q={nq} mxu_bf16={bf16}: max err {err}")
+        ms = cuda_ms(lambda: cosine_scores_cuda(lane, qry, mask,
+                                                mxu_bf16=bf16), reps=10)
+        plain_ms = cuda_ms(lambda: _cosine_scores_plain(
+            lane, qry, mask, mxu_bf16=bf16), reps=5)
 
         def library():
             dots = torch.matmul(lane, qry.T)
@@ -989,7 +1021,8 @@ def phase_search_kernels(results, n):
         nbytes = 4.0 * (n * d + nq * d + n + nq + n * nq)
         flops = 2.0 * n * d * nq + 2.0 * n * d
         bms, by = bound(nbytes, flops, "f32")
-        rec = {"shape": f"N={n} D={d} Q={nq} f32", "max_abs_err": err,
+        shape = f"N={n} D={d} Q={nq} f32" + (" mxu_bf16" if bf16 else "")
+        rec = {"shape": shape, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bms, "bound_by": by}
         log(f"K3 cosine_scores {rec['shape']}: err {err:.3g} (atol "
@@ -1133,7 +1166,9 @@ def _same_ranking(got_rows, got_scores, want_rows, all_s, all_i):
     return swaps
 
 
-def phase_lane(nslots, card, timings):
+def phase_lane(nslots, card, timings, keep):
+    """Phase 4 over a new file-backed store in the directory `keep`; the
+    file stays there for phase 13 when the phase passes."""
     import torch
 
     from libsplinter_tpu_torch import T_VARTEXT, Store
@@ -1145,11 +1180,11 @@ def phase_lane(nslots, card, timings):
     from libsplinter_tpu_torch.models import EmbeddingModel, EncoderConfig
     from libsplinter_tpu_torch.ops import _cuda
 
-    tmp = tempfile.mkdtemp(prefix="spt-smoke-")
-    path = os.path.join(tmp, "lane.spt")
+    path = os.path.join(keep, "lane.spt")
     st = None
     searcher = None
     stop = threading.Event()
+    ok = False
     try:
         t0 = time.perf_counter()
         st = Store.create(path, nslots=nslots, max_val=8192,
@@ -1300,13 +1335,14 @@ def phase_lane(nslots, card, timings):
         timings["search"] = {k: w for k, (_, w) in search.items()}
         timings["setup_s"] = setup_s
         timings["n_syn"] = n_syn
+        ok = True
         return counts
     finally:
         stop.set()
         if st is not None:
             st.close()
-            Store.unlink(path, persistent=True)
-        shutil.rmtree(tmp, ignore_errors=True)
+            if not ok:
+                Store.unlink(path, persistent=True)
 
 
 def _kernel_class(name: str) -> str:
@@ -3621,6 +3657,13 @@ def _wait_for(pred, timeout, what, dt=0.1):
           f"{what}")
 
 
+def _heartbeat_launches(hb) -> dict:
+    """A lane's kernel launches from the kernel_<name> fields of its
+    heartbeat's "dispatch" section."""
+    return {k[len("kernel_"):]: v for k, v in hb.get("dispatch", {}).items()
+            if k.startswith("kernel_")}
+
+
 def _read_json(st, key):
     try:
         return json.loads(st.get(key).rstrip(b"\0"))
@@ -3985,8 +4028,8 @@ def phase_supervision(card, timings, tmp):
                           ("searcher", P.KEY_SEARCH_STATS),
                           ("completer", P.KEY_COMPLETE_STATS)):
             _wait_for(lambda: fresh(key, t_read), 30, f"{lane}'s heartbeat")
-            launches[lane] = dict(fresh(key, t_read)["kernels"])
-        launches["embedder.r1"] = dict(r1_hb["kernels"])
+            launches[lane] = _heartbeat_launches(fresh(key, t_read))
+        launches["embedder.r1"] = _heartbeat_launches(r1_hb)
         want = {"embedder": ("flash_fwd",),
                 "searcher": ("fused_topk", "cosine_scores"),
                 "completer": ("causal_fwd", "paged_fwd")}
@@ -4090,6 +4133,609 @@ def _chatml_ids(path, text):
     return tok.encode(render_prompt(text, None, "chatml"))
 
 
+# -- phase 13: the operator CLI -----------------------------------------------
+
+CLI_LANES = ("embedder", "searcher", "completer", "pipeliner", "telemetry")
+CLI_NEW_TOKENS = 32
+# loadgen: a low fixed rate of mixed traffic for LOADGEN_S seconds
+LOADGEN_S, LOADGEN_RATE = 10.0, 3.0
+# the host module of tests/test_wasm.py (host_module()): imports
+# splinter.set/get and env.print; run() sets "wkey" to "hello wasm",
+# reads it back, prints it and returns its length (10)
+WASM_HOST_MODULE = (
+    "0061736d01000000011a0460047f7f7f7f017f60047f7f7f7f017f60027f7f006000"
+    "017f022b030873706c696e7465720373657400000873706c696e7465720367657400"
+    "0103656e76057072696e7400020302010305030100010707010372756e00030a2701"
+    "2501017f410041044108410a10001a4100410441c00041201001210041c000200010"
+    "0220000b0b19020041000b04776b65790041080b0a68656c6c6f207761736d")
+# the CLI's local Lua host reads the chain's record back from the store
+LUA_READBACK = """
+local qkey, ckey = arg[1], arg[2]
+local v = splinter.get_embedding(qkey)
+local s = 0
+for i = 1, #v do s = s + v[i] * v[i] end
+print("query", qkey, #v, string.format("%.4f", math.sqrt(s)))
+print("answer", ckey, #splinter.get(ckey))
+"""
+
+
+def _spt_argv(path, *args):
+    return [sys.executable, "-m", "libsplinter_tpu_torch.cli", "--store",
+            path, "--persistent", *args]
+
+
+def _spt(path, args, env, cwd, *, stdin=None, timeout=600, ok=True):
+    """One `python -m libsplinter_tpu_torch.cli` as a subprocess:
+    (exit code, stdout, stderr, wall s)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(_spt_argv(path, *args), cwd=cwd, env=env,
+                       input=stdin, capture_output=True, text=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    if ok:
+        check(r.returncode == 0, f"spt {' '.join(args)[:80]}: exit "
+              f"{r.returncode}\n{r.stderr[-3000:]}")
+    return r.returncode, r.stdout, r.stderr, wall
+
+
+def _spt_here(path, args, stdin=None):
+    """The same command through cli.main.main in this process (the
+    smoke's launch counters see it): (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from libsplinter_tpu_torch.cli.main import main
+    buf, old = io.StringIO(), sys.stdin
+    try:
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        with contextlib.redirect_stdout(buf):
+            rc = main(["--store", path, "--persistent", *args])
+    finally:
+        sys.stdin = old
+    return rc, buf.getvalue()
+
+
+class _LocalSplit:
+    """Times the parts of the CLI's local search from inside it: the
+    lane refresh (the upload on a session's first search), K3, the
+    distances and the argsort, each between device syncs, and keeps
+    the lane it staged for the plain checks."""
+
+    def __init__(self):
+        self.parts: dict[str, float] = {}
+        self.lane = self.norms = None
+
+    def __enter__(self):
+        import torch
+
+        from libsplinter_tpu_torch.cli import search as cs
+        from libsplinter_tpu_torch.ops import similarity as sim
+        from libsplinter_tpu_torch.ops import staged_lane as sl
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.parts[name] = time.perf_counter() - t0
+                return out
+            return run
+
+        refresh = sl.StagedLane.refresh
+
+        def staged(lane):
+            arr = timed("upload", refresh)(lane)
+            self.lane, self.norms = arr, lane.norms
+            return arr
+
+        class _Np:
+            def __getattr__(_, name):
+                return getattr(np, name)
+
+            argsort = staticmethod(timed("argsort", np.argsort))
+
+        self._saved = [(sl.StagedLane, "refresh", refresh),
+                       (sim, "cosine_scores", sim.cosine_scores),
+                       (sim, "euclidean_distances",
+                        sim.euclidean_distances), (cs, "np", cs.np)]
+        sl.StagedLane.refresh = staged
+        sim.cosine_scores = timed("k3", sim.cosine_scores)
+        sim.euclidean_distances = timed("distances",
+                                        sim.euclidean_distances)
+        cs.np = _Np()
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, val in self._saved:
+            setattr(obj, name, val)
+
+
+def _plain_rows(st, lane, q, mask, k, keep):
+    """The plain version of a search on the card: K3's plain scores,
+    stably sorted, the first k rows whose key `keep` accepts:
+    [(key, score, row)]."""
+    import torch
+
+    from libsplinter_tpu_torch.ops.similarity import (_cosine_scores_plain,
+                                                      _stable_topk)
+    s = _cosine_scores_plain(lane, torch.from_numpy(q[None]).cuda(), mask)
+    ts, ti = _stable_topk(s.T, min(lane.shape[0], 4 * k + 64))
+    out = []
+    for score, idx in zip(ts[0].tolist(), ti[0].tolist()):
+        if score <= -1e29 or len(out) >= k:
+            break
+        key = st.key_at(int(idx))
+        if keep(key):
+            out.append((key, score, int(idx)))
+    return out
+
+
+def _same_rows(what, got, want, tol):
+    """CLI rows against (key, score) pairs position by position, except
+    where two candidates score within `tol`; each reported similarity
+    within `tol` (+ its 6-decimal rounding) of the reference's."""
+    check(len(got) == len(want), f"{what}: {len(got)} rows, reference "
+          f"{len(want)}")
+    score = {k: s for k, s in want}
+    swaps = 0
+    for g, (wk, ws) in zip(got, want):
+        if g["key"] != wk:
+            check(g["key"] in score and abs(score[g["key"]] - ws) <= tol,
+                  f"{what}: {g['key']} where the reference has {wk}")
+            swaps += 1
+        check(abs(g["similarity"] - score.get(g["key"], 9.0))
+              <= tol + 5e-7, f"{what}: {g['key']} similarity "
+              f"{g['similarity']} vs {score.get(g['key'])}")
+    return swaps
+
+
+def _repl_outputs(out):
+    """The REPL's stdout split per command: the text after each prompt."""
+    return out.split("sptpu> ")[1:]
+
+
+def phase_cli(card, timings, tmp, lane_path):
+    """The operator CLI over phase 4's store: `spt supervise` starts the
+    stack, then ingest, daemon and local searches (K3 at Q = 1 in this
+    process), the REPL, the operator surfaces, Lua, the pipeline, WASM,
+    loadgen and trace export, then SIGTERM.  Returns (the children's
+    launches by lane, this process's CLI launches)."""
+    import torch
+
+    from libsplinter_tpu_torch import T_VARTEXT, Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.client import submit_embed
+    from libsplinter_tpu_torch.engine.embedder import Embedder
+    from libsplinter_tpu_torch.engine.searcher import submit_search
+    from libsplinter_tpu_torch.models import (EmbeddingModel, GgufFile,
+                                              encoder_config_from_gguf,
+                                              load_tokenizer)
+    from libsplinter_tpu_torch.ops import _cuda
+
+    enc = os.path.join(tmp, "encoder-f16.gguf")
+    dec = os.path.join(tmp, "decoder-f16-q8-q4.gguf")
+    check(os.path.exists(enc) and os.path.exists(dec),
+          "cli: phase 8's GGUF files are missing")
+    check(os.path.exists(lane_path), "cli: phase 4's store is missing")
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="spt-smoke-cli-")
+    logf = open(os.path.join(work, "supervise.log"), "w+")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    env.pop("SPTPU_FAULT", None)
+    st = proc = watch = ref_st = None
+    ref_name = f"/spt-smoke-cliref{os.getpid()}"
+    ok = False
+    try:
+        st = Store.open(lane_path, persistent=True)
+        nslots, n_used = st.nslots, st.header().used_slots
+        with GgufFile(enc) as gf:
+            ecfg = encoder_config_from_gguf(gf, out_dim=LANE_DIM)
+            etok = load_tokenizer(gf)
+            words = [w for w in gf.metadata["tokenizer.ggml.tokens"][5:]
+                     if not w.startswith("##")]
+        rng = np.random.default_rng(13)
+
+        # 1. the stack, started through the CLI from a directory without
+        # the package (phase 4's in-process lanes left heartbeats behind)
+        for key in (P.KEY_EMBED_STATS, P.KEY_SEARCH_STATS):
+            try:
+                st.unset(key)
+            except KeyError:
+                pass
+        argv = _spt_argv(
+            lane_path, "supervise", "--lanes", ",".join(CLI_LANES),
+            "--lane-args", f"embedder:--weights {enc}",
+            "--lane-args", f"completer:--weights {dec} --continuous "
+            f"--temp 0 --max-new-tokens {CLI_NEW_TOKENS}",
+            "--startup-grace-s", str(SUP_GRACE_S))
+        t_sup = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=work, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        watch = _SupervisorWatch(st, P, t_sup)
+        hb_keys = {"embedder": P.KEY_EMBED_STATS,
+                   "searcher": P.KEY_SEARCH_STATS,
+                   "completer": P.KEY_COMPLETE_STATS,
+                   "pipeliner": P.KEY_SCRIPT_STATS,
+                   "telemetry": P.KEY_TELEMETRY_STATS}
+        _wait_for(lambda: all(P.heartbeat_live(st, k, max_age_s=30)
+                              for k in hb_keys.values()), 240,
+                  "every lane's heartbeat under `spt supervise`")
+        up_s = time.perf_counter() - t_sup
+        log(f"cli: `spt --store <phase 4's file> --persistent supervise "
+            f"--lanes {','.join(CLI_LANES)}` over {nslots} slots "
+            f"({n_used} used): every lane's heartbeat {up_s:.2f}s after "
+            f"the start [{card}]")
+
+        # 2. one-shot commands that score nothing: the CLI's start-up
+        _, out, _, health_s = _spt(lane_path, ["health"], env, work)
+        for label in ("embedder", "completer", "searcher", "pipeliner",
+                      "supervisor"):
+            line = next((ln for ln in out.splitlines()
+                         if ln.startswith(label + " ")), "")
+            check("s ago" in line and "[DEAD" not in line
+                  and "[STALE" not in line, f"health: {label}: {line!r}")
+        _, _, _, config_s = _spt(lane_path, ["config"], env, work)
+        log(f"cli: one-shot torch-free commands: health {health_s:.3f}s "
+            f"(every lane's heartbeat listed), config {config_s:.3f}s "
+            f"[{card}]")
+
+        # 3. ingest 64 texts (16 in buckets >= 512) through one REPL
+        texts = _sup_texts(rng, words, 16, 48, "cli")
+        lines = []
+        for i, (key, text) in enumerate(texts.items()):
+            f = os.path.join(work, f"doc{i:02d}.txt")
+            with open(f, "w") as fh:
+                fh.write(text)
+            lines.append(f"ingest {key} {f}")
+        _, out, _, ingest_s = _spt(lane_path, [], env, work,
+                                   stdin="\n".join(lines) + "\n")
+        check(out.count("ingested 1 chunks") == len(texts),
+              f"ingest: {out[-500:]}")
+        t_emb = time.perf_counter()
+        busy = P.LBL_EMBED_REQ | P.LBL_WAITING
+        _wait_for(lambda: not any(st.labels(k) & busy for k in texts), 300,
+                  "the 64 ingested vectors")
+        land_s = time.perf_counter() - t_emb
+        for key in texts:
+            v = st.vec_get(key)
+            check(np.isfinite(v).all()
+                  and abs(float(np.linalg.norm(v)) - 1.0) < 1e-3,
+                  f"ingested {key}: norm {np.linalg.norm(v)}")
+        ref_st = Store.create(ref_name, nslots=4096, max_val=8192,
+                              vec_dim=LANE_DIM)
+        ref_emb = Embedder(ref_st, model=EmbeddingModel(ecfg, weights=enc,
+                                                        device="cuda"),
+                           tokenizer=etok, max_ctx=ecfg.max_len)
+        ref_emb.attach()
+        some = list(texts)[::8]                        # 2 long, 6 short
+        for key in some:
+            ref_st.set(key, texts[key])
+            ref_st.set_type(key, T_VARTEXT)
+            ref_st.label_or(key, P.LBL_EMBED_REQ)
+            ref_st.bump(key)
+        check(ref_emb.run_once() == len(some), "in-process reference")
+        cos = {k: float(st.vec_get(k) @ ref_st.vec_get(k)) for k in some}
+        check(min(cos.values()) >= 0.999, f"ingested vectors against the "
+              f"in-process model: {cos}")
+        log(f"cli: ingest of 64 texts (16 in buckets >= 512) through one "
+            f"REPL in {ingest_s:.2f}s, all 64 vectors landed "
+            f"{land_s:.2f}s later; 8 against the in-process model on the "
+            f"file: cosine >= {min(cos.values()):.6f} [{card}]")
+
+        # the query: one ingested text; its vector as the embedder child
+        # computes it alone (as it computes the CLI's scratch key)
+        qkey = list(texts)[40]
+        qtext = texts[qkey]
+        check(submit_embed(st, "__q/cli", qtext, timeout_ms=120_000)
+              is True, "cli: the query's embed")
+        q = st.vec_get("__q/cli").copy()
+        st.unset("__q/cli")
+
+        # 4. local search in this process: K3 at Q = 1, split in parts
+        _cuda.LAUNCHES.reset()                       # the CLI's own path
+        with _LocalSplit() as split:
+            t_loc = time.perf_counter()
+            rc, out = _spt_here(lane_path, ["search", "--local", "--json",
+                                            "--timeout", "60000",
+                                            "--limit", "10", qtext])
+            local_s = time.perf_counter() - t_loc
+        check(rc == 0, f"local search: exit {rc}")
+        local = json.loads(out)
+        k3_one = _cuda.LAUNCHES["cosine_scores"]
+        check(k3_one == 1 and _cuda.LAUNCHES["fused_topk"] == 0,
+              f"local search launches {dict(_cuda.LAUNCHES)}")
+        lane, parts = split.lane, split.parts
+        mask = torch.from_numpy(P.candidate_mask(st, 0)).cuda()
+        want = _plain_rows(st, lane, q, mask, 10, lambda k: k is not None
+                           and not k.startswith(P.SEARCH_SCRATCH_PREFIX))
+        swaps = _same_rows("local search", local,
+                           [(k, s) for k, s, _ in want], 2e-6)
+        check(local[0]["key"] == qkey, f"local search: top hit "
+              f"{local[0]['key']}, not {qkey}")
+        log(f"cli: `search --local` in this process: {local_s:.3f}s whole "
+            f"(embed round trip included): upload "
+            f"{parts['upload']:.3f}s, K3 at Q = 1 "
+            f"{parts['k3'] * 1e3:.3f} ms, distances "
+            f"{parts['distances'] * 1e3:.3f} ms, argsort "
+            f"{parts['argsort'] * 1e3:.3f} ms; rows equal the plain "
+            f"version ({swaps} near-tie swaps); K3 launched {k3_one} in "
+            f"this process [{card}]")
+
+        # 5. the daemon path: k = 10 (K2 in the searcher) as a one-shot
+        # subprocess, whose wall holds the child's first lane upload and
+        # the interpreter's torch import; then k = 10 again and --limit
+        # 200 (fetch 512 > FUSED_K_MAX: K3) in this process, and the
+        # import alone
+        served0 = _read_json(st, P.KEY_SEARCH_STATS)["served"]
+        _, out, _, one_shot_s = _spt(lane_path, [
+            "search", "--json", "--timeout", "120000", "--limit", "10",
+            qtext], env, work)
+        daemon, dwall = {10: json.loads(out)}, {}
+        for k in (10, 200):
+            t_in = time.perf_counter()
+            rc, out = _spt_here(lane_path, [
+                "search", "--json", "--timeout", "120000", "--limit", str(k),
+                qtext])
+            dwall[k] = time.perf_counter() - t_in
+            check(rc == 0, f"daemon search k={k}: exit {rc}")
+            rows = json.loads(out)
+            check(k != 10 or rows == daemon[10], "the in-process k=10 "
+                  "rows differ from the one-shot's")
+            daemon[k] = rows
+            want = _plain_rows(st, lane, q, mask, k,
+                               lambda key: key is not None
+                               and not key.startswith("__"))
+            _same_rows(f"daemon search k={k}", rows,
+                       [(key, s) for key, s, _ in want], 2e-6)
+        t_imp = time.perf_counter()
+        subprocess.run([sys.executable, "-c",
+                        "import libsplinter_tpu_torch.engine.searcher"],
+                       cwd=work, env=env, timeout=300, check=True)
+        import_s = time.perf_counter() - t_imp
+        t_hb = time.time()
+        _wait_for(lambda: (hb := _read_json(st, P.KEY_SEARCH_STATS))
+                  is not None and hb["ts"] > t_hb, 30,
+                  "the searcher's heartbeat")
+        served = _read_json(st, P.KEY_SEARCH_STATS)["served"] - served0
+        check(served >= 3, f"the searcher served {served} requests, "
+              f"not the 3 searches")
+        sys_free = [r for r in local if not r["key"].startswith("__")]
+        n = min(len(sys_free), 10)
+        _same_rows("local against daemon", sys_free[:n],
+                   [(r["key"], r["similarity"]) for r in daemon[10][:n]],
+                   2e-6)
+        log(f"cli: `search --json` through the searcher: one-shot k=10 "
+            f"{one_shot_s:.3f}s (the child's first search: its lane "
+            f"upload included; a fresh interpreter importing the "
+            f"searcher module, torch with it, takes {import_s:.3f}s); in "
+            f"this process k=10 {dwall[10]:.3f}s, --limit 200 "
+            f"{dwall[200]:.3f}s; each equal to the plain top-k on the "
+            f"card, the local ranking equal to the daemon's [{card}]")
+
+        # 6. the REPL: the card lane staged once, then only dirty rows;
+        # --fast and --cpu beside it (one lane per device)
+        srch = (f"search --local --json --timeout 60000 --limit 10 "
+                f"{shlex.quote(qtext)}")
+        script = "\n".join([
+            srch, srch.replace("--local", "--local --fast"),
+            srch.replace("--local", "--local --cpu"), srch, "metrics"])
+        t_repl = time.perf_counter()
+        rc, out = _spt_here(lane_path, [], stdin=script + "\n")
+        repl_s = time.perf_counter() - t_repl
+        check(rc == 0, f"REPL exit {rc}")
+        outs = _repl_outputs(out)
+        first, fast, cpu, second = (json.loads(o) for o in outs[:4])
+        metrics = outs[4]
+
+        def gauge(name):
+            m = re.search(rf"^sptpu_staged_lane_{name} (\S+)$", metrics,
+                          re.M)
+            check(m is not None, f"REPL metrics: no {name}")
+            return float(m.group(1))
+
+        uploads, refreshes = gauge("full_uploads"), gauge("refreshes")
+        staged_rows = gauge("rows_staged")
+        check(uploads == 1 and refreshes == 3
+              and 1 <= staged_rows <= 1024,
+              f"REPL card lane: {uploads} uploads, {refreshes} refreshes, "
+              f"{staged_rows} rows staged")
+        for what, got in (("REPL", first), ("REPL again", second)):
+            _same_rows(what, got, [(r["key"], r["similarity"])
+                                   for r in local], 2e-6)
+        _same_rows("--cpu", cpu, [(r["key"], r["similarity"])
+                                  for r in first], 1e-5)
+        dist = {r["key"]: r["distance"] for r in first}
+        derr = max(abs(r["distance"] - dist[r["key"]]) for r in cpu)
+        check(derr <= 1e-4, f"--cpu distances off by {derr}")
+        sims = [r["similarity"] for r in first]
+        gapped = [i for i in range(len(sims))
+                  if (i == 0 or sims[i - 1] - sims[i] > 4e-2)
+                  and (i == len(sims) - 1 or sims[i] - sims[i + 1] > 4e-2)]
+        check(gapped and all(fast[i]["key"] == first[i]["key"]
+                             for i in gapped),
+              f"--fast: rows {gapped} moved: {fast}")
+        exact = {r["key"]: r["similarity"] for r in first}
+        ferr = max(abs(r["similarity"] - exact[r["key"]]) for r in fast
+                   if r["key"] in exact)
+        check(ferr <= 2e-2, f"--fast scores off by {ferr}")
+        log(f"cli: one REPL session, 4 local searches in {repl_s:.2f}s: "
+            f"the card lane uploaded {uploads:.0f} time, refreshed "
+            f"{refreshes:.0f} times staging {staged_rows:.0f} dirty rows; "
+            f"--cpu within 1e-5 / 1e-4 (distance err {derr:.2e}); --fast "
+            f"keeps the {len(gapped)} gapped rows (score err {ferr:.2e}) "
+            f"[{card}]")
+        cli_counts = dict(_cuda.LAUNCHES)
+        del lane, split
+        torch.cuda.empty_cache()
+
+        # 7. operator surfaces
+        _, mout, _, _ = _spt(lane_path, ["metrics"], env, work)
+        for name in ("sptpu_embedder_kernel_flash_fwd",
+                     "sptpu_searcher_kernel_fused_topk",
+                     "sptpu_searcher_kernel_cosine_scores",
+                     "sptpu_completer_kernel_paged_fwd",
+                     "sptpu_pipeliner_", "sptpu_telemetry_samples",
+                     "sptpu_supervisor_polls"):
+            check(name in mout, f"metrics: no {name}")
+        _, hout, _, _ = _spt(lane_path, ["metrics", "--history"], env, work)
+        check("[embedder]" in hout and "queue_depth" in hout,
+              f"metrics --history: {hout[-400:]}")
+        _, tout, _, _ = _spt(lane_path, ["top", "--once"], env, work)
+        check("spt top" in tout and "searcher" in tout,
+              f"top --once: {tout[-400:]}")
+        _spt(lane_path, ["scale", "set", "embedder=1"], env, work)
+        _, sout, _, _ = _spt(lane_path, ["scale", "status"], env, work)
+        row = next((ln for ln in sout.splitlines()
+                    if ln.startswith("embedder ")), "")
+        check(re.search(r"\b1\s+manual\b", row) is not None,
+              f"scale status: {row!r}")
+        _spt(lane_path, ["scale", "set", "embedder=auto"], env, work)
+        log(f"cli: metrics (every lane, the model lanes' kernel_* "
+            f"counts), metrics --history, top --once and scale (target "
+            f"read back: {row.split()[:5]}) rendered [{card}]")
+
+        # 8. scripting: the RAG chain through `pipeline run`, its record
+        # read back by the CLI's own Lua host, and WASM
+        rag = os.path.join(work, "rag.lua")
+        with open(rag, "w") as fh:
+            fh.write(RAG_SCRIPT)
+        _, out, _, rag_s = _spt(lane_path, [
+            "pipeline", "run", rag, "--json", "--timeout-ms", "300000",
+            "__rag/q", qtext, "5", "rag/cli"], env, work)
+        rec = json.loads(out)
+        check(rec.get("ok") is True, f"RAG chain: {rec}")
+        hits = rec["ret"][0]
+        st.set("__q/rag", "q")
+        st.vec_set("__q/rag", st.vec_get("__rag/q"))
+        direct = submit_search(st, "__q/rag", 5, timeout_ms=300_000)
+        check(direct is not None and direct.get("keys") == hits
+              and hits[0] == qkey, f"RAG hits {hits} != a direct "
+              f"search's {direct}")
+        lua = os.path.join(work, "readback.lua")
+        with open(lua, "w") as fh:
+            fh.write(LUA_READBACK)
+        _, out, _, _ = _spt(lane_path, ["lua", lua, "__rag/q", "rag/cli"],
+                            env, work)
+        check(f"query\t__rag/q\t{LANE_DIM}\t1.0000" in out
+              and "answer\trag/cli" in out, f"lua: {out!r}")
+        wasm = os.path.join(work, "host.wasm")
+        with open(wasm, "wb") as fh:
+            fh.write(bytes.fromhex(WASM_HOST_MODULE))
+        _, out, _, _ = _spt(lane_path, ["wasm", wasm, "run"], env, work)
+        check("hello wasm" in out and out.strip().endswith("10")
+              and st.get("wkey").rstrip(b"\0") == b"hello wasm",
+              f"wasm: {out!r}")
+        log(f"cli: `pipeline run` of a Lua RAG chain in {rag_s:.2f}s, "
+            f"hits equal a direct search's; `lua` read its record back; "
+            f"`wasm` ran the host module [{card}]")
+
+        # 9. loadgen: mixed traffic at a low fixed rate, then trace export
+        _, out, _, lg_s = _spt(lane_path, [
+            "loadgen", "--duration", str(LOADGEN_S), "--rate",
+            str(LOADGEN_RATE), "--arrivals", "fixed", "--mix",
+            "embed:1,search:1,complete:1", "--seed", "13",
+            "--trace-sample", "1.0", "--drain-s", "60", "--json"],
+            env, work, timeout=300)
+        rep, end = json.JSONDecoder().raw_decode(out)
+        check(out[end:].strip() == "done", f"loadgen: {out[end:]!r}")
+        check(rep["lost"] == 0 and rep["issued"] >= LOADGEN_S
+              * LOADGEN_RATE * 0.8, f"loadgen: {rep}")
+        lanes_q = {lane: {k: row.get(k) for k in ("p50_ms", "p99_ms")}
+                   for tenant in rep["per_tenant"].values()
+                   for lane, row in tenant.items()
+                   if isinstance(row, dict) and "p50_ms" in row}
+        check({"embed", "search", "complete"} <= set(lanes_q),
+              f"loadgen lanes: {sorted(lanes_q)}")
+        trace = os.path.join(work, "trace.json")
+        _, out, _, _ = _spt(lane_path, ["trace", "export", "--out", trace],
+                            env, work)
+        with open(trace) as fh:
+            doc = json.load(fh)
+        check(doc.get("traceEvents"), "trace export: no events")
+        log(f"cli: loadgen {LOADGEN_S:g}s at {LOADGEN_RATE:g} req/s "
+            f"(embed, search, complete): issued {rep['issued']}, ok "
+            f"{rep['ok']}, ok_late {rep['ok_late']}, lost {rep['lost']} in "
+            f"{lg_s:.2f}s; p50/p99 ms by lane {json.dumps(lanes_q)}; "
+            f"`trace export` wrote {len(doc['traceEvents'])} events "
+            f"[{card}]")
+
+        # 10. the children's kernel launches, from their heartbeats
+        def fresh(key, after):
+            hb = _read_json(st, key)
+            return hb if hb is not None and hb["ts"] > after else None
+
+        t_read = time.time() + 0.5
+        launches = {}
+        for lane_name in ("embedder", "searcher", "completer"):
+            key = hb_keys[lane_name]
+            _wait_for(lambda: fresh(key, t_read), 30,
+                      f"{lane_name}'s heartbeat")
+            launches[lane_name] = _heartbeat_launches(fresh(key, t_read))
+        # (loadgen's prompts are short: their prefills stay under K4's
+        # 512-token floor, so the completer runs K5 alone here)
+        want_k = {"embedder": ("flash_fwd",),
+                  "searcher": ("fused_topk", "cosine_scores"),
+                  "completer": ("paged_fwd",)}
+        for lane_name, names in want_k.items():
+            for name in names:
+                check(launches[lane_name][name] > 0, f"cli stack: "
+                      f"{lane_name} never launched {name}: "
+                      f"{launches[lane_name]}")
+
+        # 11. SIGTERM: exit 0, no child left
+        watch.close()
+        pids = set(watch.pids)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc == 0, f"`spt supervise` exit code {rc} after SIGTERM")
+        _wait_for(lambda: not any(P.pid_alive(p) for p in pids), 30,
+                  "every child to exit")
+        wall = time.perf_counter() - t0
+        log(f"cli: `spt supervise` exited 0 on SIGTERM, its {len(pids)} "
+            f"children gone; kernel launches by lane "
+            f"{json.dumps(launches)}, in this process {cli_counts}")
+        log(f"cli phase: {wall:.1f}s [{card}]")
+        timings["cli"] = {
+            "wall_s": wall, "stack_up_s": up_s, "health_s": health_s,
+            "config_s": config_s, "ingest_s": ingest_s, "land_s": land_s,
+            "local_s": local_s, "local_parts_s": parts,
+            "daemon_search_one_shot_s": one_shot_s,
+            "daemon_search_s": dwall, "searcher_import_s": import_s,
+            "repl_s": repl_s,
+            "repl_rows_staged": staged_rows, "rag_s": rag_s,
+            "loadgen": {"issued": rep["issued"], "ok": rep["ok"],
+                        "lost": rep["lost"], "lanes_ms": lanes_q}}
+        ok = True
+        return launches, cli_counts
+    finally:
+        if watch is not None:
+            watch.close()
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        if not ok:
+            logf.seek(0)
+            print(f"supervise log (tail):\n{logf.read()[-6000:]}",
+                  file=sys.stderr)
+        logf.close()
+        if st is not None:
+            st.close()
+        if ref_st is not None:
+            ref_st.close()
+            Store.unlink(ref_name)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _lane_slots(requested: int) -> int:
     """The requested slot count, cut to 262,144 when the temp dir
     cannot hold the file-backed store (~11.5 KB per slot mapped)."""
@@ -4134,7 +4780,7 @@ def main() -> int:
         phase_search_kernels(results, 1 << 20)
         phase_causal(results)
         phase_paged(results)
-        counts = phase_lane(_lane_slots(1 << 20), card, timings)
+        counts = phase_lane(_lane_slots(1 << 20), card, timings, tmp)
         k4 = {"phase 5": phase_completion(card, timings)["causal_fwd"]}
         cont = phase_continuous(card, timings)
         counts["paged_fwd"] = cont["paged_fwd"]
@@ -4173,6 +4819,15 @@ def main() -> int:
         for k, v in sup_counts.items():
             counts[k] += v
         timings["supervision_launches"] = sup
+        # the operator CLI over phase 4's store: the children's launches
+        # from their heartbeats, the CLI's own (K3 at Q = 1) from this
+        # process, each counting from 0 after this point
+        cli, cli_counts = phase_cli(card, timings, tmp,
+                                    os.path.join(tmp, "lane.spt"))
+        for path in list(cli.values()) + [cli_counts]:
+            for k, v in path.items():
+                counts[k] += v
+        timings["cli_launches"] = dict(cli, cli=cli_counts)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

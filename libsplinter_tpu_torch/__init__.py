@@ -16,6 +16,8 @@ nothing from it (nor JAX).  Layers mirror the reference layout:
   parallel/         the encoder's contrastive trainer and its
                     checkpoints (one card)
   obs/, utils/      telemetry, tracing, fault injection
+  scripting/        the Lua and WASM hosts
+  cli/              the operator CLI: python -m libsplinter_tpu_torch.cli
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

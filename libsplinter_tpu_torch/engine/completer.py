@@ -1814,8 +1814,11 @@ class Completer:
         if devtime:
             payload["devtime"] = devtime
         # this process's hand-written kernel launches by name (the
-        # counterpart of the JAX lanes' device-program ledger in devtime)
-        payload["kernels"] = dict(LAUNCHES)
+        # counterpart of the JAX lanes' device-program ledger in
+        # devtime), in the size-droppable "dispatch" section that `spt
+        # metrics` renders flat: sptpu_<lane>_kernel_<name>
+        payload.setdefault("dispatch", {}).update(
+            LAUNCHES.heartbeat_fields())
         self._lane_payload(payload)
         DEVTIME.flush(self.store)
         if tracer.enabled:

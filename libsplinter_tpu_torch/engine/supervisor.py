@@ -74,6 +74,7 @@ import random
 import signal
 import subprocess
 import sys
+import threading
 import time
 from collections import deque
 from pathlib import Path
@@ -801,8 +802,14 @@ class Supervisor:
 
     def run(self, *, poll_interval_s: float = 0.5,
             stop_after: float | None = None) -> None:
+        """Supervise until stop(), `stop_after` seconds or, on the main
+        thread, SIGTERM (`python -m ...supervisor` and `spt supervise`
+        alike); every child is terminated before this returns."""
         self._running = True
         deadline = (self._clock() + stop_after) if stop_after else None
+        prev = None
+        if threading.current_thread() is threading.main_thread():
+            prev = signal.signal(signal.SIGTERM, lambda *_: self.stop())
         try:
             while self._running:
                 try:
@@ -816,6 +823,8 @@ class Supervisor:
                 time.sleep(poll_interval_s)
         finally:
             self.shutdown()
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
 
     def stop(self) -> None:
         self._running = False
@@ -1080,9 +1089,8 @@ def main(argv: list[str] | None = None) -> int:
         persistent=args.persistent,
         lane_args=lane_args,
         **sup_kw)
-    # SIGTERM ends the loop like ^C does: run()'s finally terminates
-    # every child before the process exits 0
-    signal.signal(signal.SIGTERM, lambda *_: sup.stop())
+    # SIGTERM ends run() like ^C does: its finally terminates every
+    # child before the process exits 0
     try:
         sup.run(**run_kw)
     except KeyboardInterrupt:

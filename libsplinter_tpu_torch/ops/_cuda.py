@@ -89,6 +89,10 @@ class LaunchCounts(dict):
         for name in self:
             self[name] = 0
 
+    def heartbeat_fields(self) -> dict:
+        """The counts as heartbeat fields, kernel_<name>."""
+        return {f"kernel_{name}": n for name, n in self.items()}
+
 
 LAUNCHES = LaunchCounts()
 

@@ -26,7 +26,12 @@ VERBATIM = ("_native.py", "utils/faults.py",
             "engine/autoscaler.py", "engine/pipeliner.py",
             "scripting/__init__.py", "scripting/microlua.py",
             "scripting/sandbox.py", "scripting/library.py",
-            "scripting/lua_host.py")
+            "scripting/lua_host.py", "scripting/microwasm.py",
+            "scripting/wasm_host.py", "utils/fingerprint.py",
+            "cli/__init__.py", "cli/__main__.py", "cli/ingest.py",
+            "cli/metrics.py", "cli/top.py", "cli/supervise.py",
+            "cli/scale.py", "cli/pipeline.py", "cli/script.py",
+            "cli/loadgen.py")
 
 # the parts of models/gguf.py copied unchanged from the JAX package's:
 # the container reader, every ggml dequantizer and the tokenizers (the
@@ -75,8 +80,11 @@ for name in {FORBIDDEN!r}:
     sys.modules[name] = None
 sys.path.insert(0, {str(ROOT)!r})
 import libsplinter_tpu_torch
+# a package's __main__ runs its entry point when imported
 mods = [m.name for m in pkgutil.walk_packages(
-    libsplinter_tpu_torch.__path__, "libsplinter_tpu_torch.")]
+    libsplinter_tpu_torch.__path__, "libsplinter_tpu_torch.")
+    if not m.name.endswith(".__main__")]
+assert "libsplinter_tpu_torch.cli.search" in mods
 for m in mods:
     importlib.import_module(m)
 spec = importlib.util.spec_from_file_location(
@@ -118,6 +126,49 @@ def test_store_copy_differs_only_in_list():
     supervisor and the searcher list keys every poll)."""
     assert _without_store_list(PORT / "store.py") == \
         _without_store_list(ROOT / "libsplinter_tpu" / "store.py")
+
+
+def _search_lines(path):
+    """cli/search.py's text without the parts the port owns: the module
+    docstring, the command's help text, the body of the --sharded
+    branch, `_local_search`, `_bucket` and the line importing it."""
+    text = path.read_text()
+    tree = ast.parse(text)
+    lines = text.splitlines()
+    cut = set(range(tree.body[0].lineno - 1, tree.body[0].end_lineno))
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        if fn.name in ("_local_search", "_bucket"):
+            cut |= set(range(fn.lineno - 1, fn.end_lineno))
+        for deco in fn.decorator_list:
+            cut |= set(range(deco.lineno - 1, deco.end_lineno))
+        for node in ast.walk(fn):
+            if isinstance(node, ast.If) and "sharded" in \
+                    ast.unparse(node.test):
+                cut |= set(range(node.lineno, node.body[-1].end_lineno))
+    kept = [ln for i, ln in enumerate(lines) if i not in cut
+            and "sharded_search import _bucket" not in ln]
+    while kept and not kept[-1].strip():
+        kept.pop()
+    return kept
+
+
+def test_search_copy_differs_only_in_local_path():
+    """cli/search.py follows the JAX package's line by line except in
+    `_local_search` (the port's K3 on the session lane's device), the
+    --sharded branch (a refusal until the multi-GPU slice) and
+    `_bucket`, which the port keeps in the module (the JAX package
+    imports it from parallel/sharded_search.py, which the port lacks) —
+    and in the docstring and help text that say so."""
+    import inspect
+
+    from libsplinter_tpu.parallel import sharded_search as ref
+
+    from libsplinter_tpu_torch.cli import search as port
+    assert _search_lines(PORT / "cli" / "search.py") == \
+        _search_lines(ROOT / "libsplinter_tpu" / "cli" / "search.py")
+    assert inspect.getsource(port._bucket) == inspect.getsource(ref._bucket)
 
 
 def test_store_list_matches_jax_package():

@@ -17,8 +17,8 @@ children (no torch import); the lane table naming only the port's lanes;
 the chip pin (utils/device.py apply_chip_pin and the completer's main);
 and `python -m libsplinter_tpu_torch.engine.supervisor` started from
 another directory, stopped by SIGTERM with exit 0 and no child left.
-The `spt metrics` rendering of the supervisor heartbeat waits for the
-CLI item of ROADMAP.md's Queue A."""
+The `spt metrics` rendering of the supervisor heartbeat is held by
+tests/test_torch_cli_surfaces.py."""
 from __future__ import annotations
 
 import json
@@ -400,7 +400,7 @@ def test_fault_env_stripped_from_respawns(sstore, monkeypatch):
 
 def test_supervisor_heartbeat(sstore):
     """Restart/backoff/breaker counters publish in __supervisor_stats
-    (its `spt metrics` exposition waits for the CLI slice)."""
+    (its `spt metrics` exposition: tests/test_torch_cli_surfaces.py)."""
     sup = Supervisor(sstore.name, lanes=("searcher", "embedder"),
                      spawn_fn=_crasher(), store=sstore,
                      backoff_base_ms=5, breaker_threshold=3,

@@ -5,8 +5,8 @@ sampler's store-resident rings, the supervised restart keeping them, run
 through the port's supervisor) and of the autoscaler cases of
 tests/test_elastic.py (hysteresis, cooldown, stale samples, shed votes,
 manual holds, the pool signal's readmit discount, the heartbeat).  The
-cases that render through `spt metrics`, `spt top` and `spt scale` wait
-for the CLI item of ROADMAP.md's Queue A."""
+cases that render through `spt metrics`, `spt top` and `spt scale` are
+in tests/test_torch_cli_surfaces.py."""
 import json
 import os
 import time
