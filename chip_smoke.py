@@ -4,9 +4,10 @@ the encoder's contrastive trainer, GGUF checkpoints opened cold by the
 embedder and the completer, the completer's serving variants
 (int8-resident weights, the host-DRAM KV tier, the disaggregated
 prefill/decode lanes), speculative decoding, a Mixtral-family MoE
-checkpoint, the whole serving surface as supervised child processes
-and the operator CLI over it on one NVIDIA GPU, with every CUDA kernel
-held against its plain PyTorch version.
+checkpoint, the whole serving surface as supervised child processes,
+the operator CLI over it and sharded serving (tensor- and
+expert-parallel decoding, sharded search) on one NVIDIA GPU, with every
+CUDA kernel held against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -186,15 +187,35 @@ Phases (any failure exits non-zero and prints no result line):
      nothing lost (p50/p99 by lane), `trace export`; the children's
      launches (K1, K2, K3, K5) from their heartbeats; SIGTERM to
      `spt supervise`: exit 0, no child left;
- 14. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+ 14. sharded: a tp = 2 mesh of two shards (real cards where the host
+     has two, else both shards on cuda:0, which is printed): K4 at the
+     per-shard shape of the main case (B=8 S=1024 H=KH=6) and K5 at
+     H=KH=6 over bf16, int8 and int4 pools against their plain versions
+     (graph replay, as phase 3's rows); the continuous lane at tp = 2 at
+     DecoderConfig() width through Completer, 16 requests x 64 tokens
+     (prompts up to ~1500 tokens, so K4 runs on each shard), greedy,
+     against tp = 1 on the same weights: f32 tokens identical, bf16
+     agreement and first divergences printed, each shard's K4 and K5
+     launches > 0; the tp = 2 target's self-draft (9 layers, gamma 4,
+     8 requests) against its plain lane in f32; the split lanes at
+     tp = 2 (bf16, 8 requests) identical to the unified lane, the wire
+     MB printed; phase 11's MoE geometry in f32 at ep = 2 x tp = 2
+     against ep = 1, tokens identical; sharded_topk over phase 4's lane
+     at dp = 2 against the one-shard kernels (K2 at Q = 8 k = 16, and
+     over a sparse mask with tied twins and filler; K3 at k = 200), rows
+     identical; `spt search --sharded` (k = 10 and 200) on phase 4's
+     store with an in-process embedder answering, equal to the plain
+     version; `completer.main --tp 2` on one card refused, naming the
+     count.  Its wall and per-shard launch counts are printed;
+ 15. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
      (K5, by query tokens and by splits: a launch of more than one
      split runs the combine kernel too), 7 (K6), 8 (K1, K2, K4, K5
      from GGUF weights), 9-11 (K4, K5 on each path), 12 (K1-K5 in
      the supervised children, each process counting from its start)
-     and 13 (K3 in the CLI's own process, K1-K5 in the children), each
-     counted from 0 just before its path runs, phases 8-13 added to the
-     sums.
+     13 (K3 in the CLI's own process, K1-K5 in the children) and 14
+     (K2-K5 on the sharded paths), each counted from 0 just before its
+     path runs, phases 8-14 added to the sums.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -667,7 +688,7 @@ def _causal_bound(b, s, t, h, kh, d, pos, starts, elt, kind):
     return bound(nbytes, flops, kind)
 
 
-def phase_causal(results):
+def phase_causal(results, cases=CAUSAL_CASES):
     import torch
     import torch.nn.functional as F
 
@@ -675,7 +696,7 @@ def phase_causal(results):
         causal_attention_plain, causal_flash_attention)
 
     d = 64
-    for b, s, t, h, kh, pos, starts in CAUSAL_CASES:
+    for b, s, t, h, kh, pos, starts in cases:
         rep = h // kh
         start = torch.tensor(starts, dtype=torch.int32, device="cuda")
         slots = pos + torch.arange(s, device="cuda")
@@ -846,24 +867,25 @@ def _paged_bound(lens, s, h, kh, d, page, n_pages, kind, qelt):
     return bound(nbytes, flops, "f32" if kind == "f32" else "bf16")
 
 
-def _paged_shape(lens, s, kh, kind):
+def _paged_shape(lens, s, kh, kind, h=12):
     live = int((lens > 0).sum())
-    return (f"B={len(lens)} S={s} H=12 KH={kh} page=128 P=16 {kind}"
+    return (f"B={len(lens)} S={s} H={h} KH={kh} page=128 P=16 {kind}"
             + (f" len={int(lens[0])}" if len(lens) == 1 else "")
             + (f" live={live}" if live < len(lens) - 1 else ""))
 
 
-def phase_paged(results):
+def phase_paged(results, cases=PAGED_CASES, h=12):
     import torch
     import torch.nn.functional as F
 
     from libsplinter_tpu_torch.ops.paged_attention import (
         _paged_plan, dequantize_pool, paged_attention, paged_attention_plain)
 
-    page, n_pages, h, d = 128, 16, 12, 64
+    page, n_pages, d = 128, 16, 64
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for s, kh, kind, lens in PAGED_CASES:
-        q, kp, vp, scales, tables, lengths = _paged_inputs(s, kh, kind, lens)
+    for s, kh, kind, lens in cases:
+        q, kp, vp, scales, tables, lengths = _paged_inputs(s, kh, kind, lens,
+                                                           h=h)
         kw = {} if scales is None else {"k_scales": scales[0],
                                         "v_scales": scales[1]}
         got = paged_attention(q, kp, vp, tables, lengths, **kw)
@@ -948,7 +970,7 @@ def phase_paged(results):
         lib_err = (lib[sees] - g4[sees]).abs().max().item()
         bms, by = _paged_bound(lens, s, h, kh, d, page, n_pages, kind,
                                q.element_size())
-        rec = {"shape": _paged_shape(lens, s, kh, kind),
+        rec = {"shape": _paged_shape(lens, s, kh, kind, h),
                "max_abs_err": err, "f32_query_err": err32, "ms": ms,
                "wrapper_ms": wrapper_ms, "splits": splits,
                "pages_per_split": pps, "plain_ms": plain_ms,
@@ -2879,12 +2901,13 @@ def _variants_tier(card, timings, model, prompts):
     return counts
 
 
-def _variants_disagg(card, timings, model, prompts, tmp):
+def _variants_disagg(card, timings, model, prompts, tmp,
+                     what="variants, disagg", record="variants_disagg"):
     """A PrefillLane and a DecodeLane on the one card over one store (one
-    process, the lanes on two threads), 16 requests; completions against
-    the unified lane's on the same prompts, and each prompt's first decode
-    step over adopted wire pages against the same step over the pages it
-    was prefilled into."""
+    process, the lanes on two threads); completions against the unified
+    lane's on the same prompts, and each prompt's first decode step over
+    adopted wire pages against the same step over the pages it was
+    prefilled into.  The record goes to timings[record]."""
     import torch
 
     from libsplinter_tpu_torch import Store
@@ -2991,7 +3014,7 @@ def _variants_disagg(card, timings, model, prompts, tmp):
     del src, dst
     torch.cuda.empty_cache()
     wire_mb = pstats["handoff_wire_mb"]
-    log(f"variants, disagg: the unified lane (bf16 weights) first, {n} "
+    log(f"{what}: the unified lane (bf16 weights) first, {n} "
         f"requests, {n * VARIANT_NEW_TOKENS} tokens in {uwall:.3f}s = "
         f"{n * VARIANT_NEW_TOKENS / uwall:.1f} tokens/s; PrefillLane + "
         f"DecodeLane, {n * VARIANT_NEW_TOKENS} tokens in {wall:.3f}s = "
@@ -3004,7 +3027,7 @@ def _variants_disagg(card, timings, model, prompts, tmp):
         f"{exact} of {n} bit-identical, max err {worst_err:.3e}, cosine "
         f">= {worst_cos:.6f}; K4 {counts['causal_fwd']}, K5 "
         f"{counts['paged_fwd']} [{card}]")
-    timings["variants_disagg"] = {
+    timings[record] = {
         "requests": n, "identical": same, "wall_s": wall,
         "unified_wall_s": uwall,
         "wire_mb": wire_mb, "handoff_ms": float(np.mean(walls) * 1e3),
@@ -4736,6 +4759,364 @@ def phase_cli(card, timings, tmp, lane_path):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 14: sharded serving ------------------------------------------------
+
+# the per-shard shapes of the main K4 and K5 cases at tp = 2: each shard
+# holds 6 of the 12 heads and 6 of the 12 kv heads
+SHARD_CAUSAL_CASES = ((8, 1024, 2048, 6, 6, 0, CAUSAL_CASES[0][6]),)
+SHARD_PAGED_CASES = tuple((1, 6, kind, _paged_lengths(32))
+                          for kind in ("bf16", "int8", "int4"))
+SHARD_KERNELS = ("fused_topk", "cosine_scores", "causal_fwd", "paged_fwd")
+
+
+def _shard_mesh(**axes):
+    """A mesh of `axes` over real cards where the host has enough, else
+    a virtual one whose shards all share cuda:0: (mesh, description)."""
+    import torch
+
+    from libsplinter_tpu_torch.parallel import make_mesh
+
+    n = int(np.prod(list(axes.values())))
+    if torch.cuda.device_count() >= n:
+        devs = [f"cuda:{i}" for i in range(n)]
+        how = f"real cards {devs}"
+    else:
+        devs = ["cuda:0"] * n
+        how = f"virtual: all {n} shards on cuda:0"
+    return make_mesh(devices=devs, **axes), how
+
+
+def _by_shard():
+    """This path's launches per (kernel, shard), as "kernel/shard"."""
+    from libsplinter_tpu_torch.ops import _cuda
+
+    return {f"{k}/{s}": n for (k, s), n in sorted(
+        _cuda.LAUNCHES.by_shard.items())}
+
+
+def _agreement(a: dict, b: dict):
+    """Token agreement of two lanes' id lists and each key's first
+    divergence (position, a's id, b's id)."""
+    same = sum(int(x == y) for k in a for x, y in zip(a[k], b[k]))
+    total = sum(len(v) for v in a.values())
+    first = {}
+    for k in a:
+        for i, (x, y) in enumerate(zip(a[k], b[k])):
+            if x != y:
+                first[k] = (i, x, y)
+                break
+    return same / total, first
+
+
+def _sharded_lanes(card, mesh, prompts, out, tmp):
+    """tp = 1 against tp = 2 on the continuous lane, f32 then bf16, and
+    the tp = 2 target's self-draft; returns launches by path."""
+    import torch
+
+    from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
+    from libsplinter_tpu_torch.parallel import ShardedCompletionModel
+
+    launches = {}
+    tok = _piece_tokenizer()
+    longest = max(len(tok.encode(t)) for t in prompts.values())
+    check(longest > 512, f"no prompt reaches K4's buckets ({longest} tokens)")
+    for kind, cfg in (("f32", DecoderConfig(dtype=torch.float32)),
+                      ("bf16", DecoderConfig())):
+        one = CompletionModel(cfg, seed=0, temp=0.0, device="cuda")
+        two = ShardedCompletionModel(cfg, mesh,
+                                     params=one.module.state_dict(),
+                                     temp=0.0)
+        ids1, w1, _, _, _, held1 = _ids_lane(one, prompts, f"tp=1 {kind}")
+        ids2, w2, c2, _, _, held2 = _ids_lane(two, prompts, f"tp=2 {kind}")
+        shards = _by_shard()
+        # the prefix cache keeps the prompts' pages after the drain; one
+        # page scheduler keeps the same number at either tp
+        check(held1 == held2, f"{kind}: pages held after the drain: tp=1 "
+              f"{held1}, tp=2 {held2}")
+        for s in range(2):
+            check(shards.get(f"causal_fwd/{s}", 0) > 0
+                  and shards.get(f"paged_fwd/{s}", 0) > 0,
+                  f"tp=2 {kind}: shard {s} did not launch K4 and K5: "
+                  f"{shards}")
+        agree, first = _agreement(ids1, ids2)
+        if kind == "f32":
+            check(ids1 == ids2, f"tp=2 f32 tokens differ from tp=1: "
+                  f"agreement {agree:.4f}, first divergences {first}")
+        tokens = len(prompts) * SPEC_NEW_TOKENS
+        log(f"sharded, {kind}: {len(prompts)} requests x {SPEC_NEW_TOKENS} "
+            f"tokens (longest prompt {longest} tokens) through Completer; "
+            f"tp=2 greedy tokens against tp=1: agreement {agree:.4f}, first "
+            f"divergences {first or 'none'}; tp=1 {tokens / w1:.1f} "
+            f"tokens/s, tp=2 {tokens / w2:.1f} tokens/s (cold, prefill "
+            f"included; both shards time-share the card when the mesh is "
+            f"virtual); tp=2 K4 {c2['causal_fwd']}, K5 {c2['paged_fwd']}, "
+            f"by shard {shards}; pages kept by the prefix cache after the "
+            f"drain {held2[0]} at both tp [{card}]")
+        out[kind] = {"agreement": agree, "first_divergences": first,
+                     "tp1_tokens_per_s": tokens / w1,
+                     "tp2_tokens_per_s": tokens / w2, "by_shard": shards}
+        launches[kind] = c2
+        if kind == "f32":
+            # the self-draft of the tp = 2 target (9 layers, gamma 4)
+            # against its plain lane
+            eight = dict(list(prompts.items())[:8])
+            rec, launches["spec"] = _spec_compare(
+                card, two, eight, "tp=2 f32", lambda a, b: a - b < 1e-4,
+                "top-2 within 1e-4")
+            out["spec"] = rec
+        else:
+            check(two.page_wire_bytes(two.init_paged(2))
+                  == one.page_wire_bytes(one.init_paged(2)),
+                  "a tp=2 wire page is not the tp=1 page's size")
+            eight = dict(list(prompts.items())[:8])
+            launches["disagg"] = _variants_disagg(
+                card, out, two, eight, tmp, what="sharded, disagg at tp=2",
+                record="disagg")
+            d = out["disagg"]
+            check(d["identical"] == d["requests"], f"tp=2 split lanes: "
+                  f"{d['identical']} of {d['requests']} completions equal "
+                  f"the unified lane's")
+        del one, two
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _sharded_moe(card, prompts, out):
+    """Phase 11's MoE geometry (DecoderConfig() width, 8 experts, top-2)
+    in f32 at ep = 2 x tp = 2 against ep = 1, seeded weights."""
+    import torch
+
+    from libsplinter_tpu_torch.models import (MoeDecoderConfig,
+                                              moe_completion_model)
+
+    mesh, how = _shard_mesh(tp=2, ep=2)
+    cfg = MoeDecoderConfig(n_experts=8, top_k=2, dtype=torch.float32)
+    one = moe_completion_model(cfg, seed=0, temp=0.0, device="cuda")
+    four = moe_completion_model(cfg, mesh, params=one.module.state_dict(),
+                                temp=0.0)
+    experts = [m.layer_0.moe.gate_experts.shape[0]
+               for m in four.module.shards]
+    check(experts == [4, 4, 4, 4], f"MoE shards hold {experts} experts")
+    ids1, w1, _, _, _, held1 = _ids_lane(one, prompts, "moe ep=1 f32")
+    ids4, w4, c4, _, _, held = _ids_lane(four, prompts,
+                                         "moe ep=2 x tp=2 f32")
+    shards = _by_shard()
+    agree, first = _agreement(ids1, ids4)
+    check(ids1 == ids4 and held == held1, f"MoE ep=2 x tp=2 f32 tokens "
+          f"against ep=1: agreement {agree:.4f}, first divergences {first}; "
+          f"pages held {held1}, {held}")
+    tokens = len(prompts) * SPEC_NEW_TOKENS
+    log(f"sharded, moe: MoeDecoderConfig(8 experts, top-2) f32, mesh "
+        f"{mesh.shape} ({how}), 4 experts a shard; {len(prompts)} requests "
+        f"x {SPEC_NEW_TOKENS} tokens identical to ep=1; ep=1 "
+        f"{tokens / w1:.1f} tokens/s, ep=2 x tp=2 {tokens / w4:.1f} "
+        f"tokens/s; K4 {c4['causal_fwd']}, K5 {c4['paged_fwd']}, by shard "
+        f"{shards} [{card}]")
+    out["moe"] = {"tokens_equal": True, "ep1_tokens_per_s": tokens / w1,
+                  "ep2tp2_tokens_per_s": tokens / w4, "by_shard": shards}
+    del one, four
+    torch.cuda.empty_cache()
+    return c4
+
+
+def _sharded_search(card, lane_path, out):
+    """sharded_topk over phase 4's lane at dp = 2 against the one-shard
+    kernels (K2 at Q = 8 k = 16, ties and filler included; K3 at
+    k = 200), then `spt search --sharded` on the store through the CLI
+    with an in-process embedder answering; returns launches by path."""
+    import torch
+
+    from libsplinter_tpu_torch import Store
+    from libsplinter_tpu_torch.engine import protocol as P
+    from libsplinter_tpu_torch.engine.client import submit_embed
+    from libsplinter_tpu_torch.engine.embedder import Embedder
+    from libsplinter_tpu_torch.models import EmbeddingModel, EncoderConfig
+    from libsplinter_tpu_torch.ops import _cuda
+    from libsplinter_tpu_torch.ops.similarity import (_stable_topk,
+                                                      cosine_scores,
+                                                      fused_topk_cuda)
+    from libsplinter_tpu_torch.parallel import PodSearch
+    from libsplinter_tpu_torch.parallel.sharded_search import \
+        local_candidates
+
+    launches = {}
+    st = Store.open(lane_path, persistent=True)
+    stop = threading.Event()
+    th = None
+    try:
+        emb = Embedder(st, model=EmbeddingModel(
+            EncoderConfig(out_dim=LANE_DIM, max_len=2048), seed=0,
+            device="cuda"), max_ctx=2048)
+        emb.attach()
+
+        def answer():
+            while not stop.is_set():
+                emb.run_once()
+                stop.wait(0.01)
+
+        th = threading.Thread(target=answer, daemon=True)
+        th.start()
+        texts, twins = _texts(np.random.default_rng(0))
+        qtext = texts["text/40"]
+        check(submit_embed(st, "__q/shard", qtext, timeout_ms=120_000)
+              is True, "sharded search: the query's embed")
+        q = st.vec_get("__q/shard").copy()
+        st.unset("__q/shard")
+
+        mesh, how = _shard_mesh(dp=2)
+        t0 = time.perf_counter()
+        pod = PodSearch(st, mesh)
+        blocks = pod.refresh()
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        whole = torch.cat([b.to("cuda:0") for b in blocks])
+        n = whole.shape[0]
+        mask = torch.from_numpy(P.candidate_mask(st, 0)).cuda()
+        # Q = 8: the query and seven texts' own vectors
+        rows = [st.find_index(k) for k in list(texts)[:7]]
+        queries = torch.cat([torch.from_numpy(q[None]).cuda(),
+                             whole[rows]]).contiguous()
+        # a sparse mask over a few rows, twin pairs among them: ties, and
+        # filler past the 10 candidates
+        few = [st.find_index(k) for k in (*twins, *twins.values())] \
+            + rows[2:4]
+        sparse = torch.zeros_like(mask)
+        sparse[few] = 1.0
+        rec = {}
+        for k, m, tag in ((16, mask, "k=16"), (16, sparse, "k=16 sparse"),
+                          (200, mask, "k=200")):
+            _cuda.LAUNCHES.reset()
+            s2, i2 = local_candidates(blocks, queries, k, m)
+            torch.cuda.synchronize()
+            launches[tag] = {kk: _cuda.LAUNCHES[kk] for kk in SHARD_KERNELS}
+            shards = _by_shard()
+            if k <= 128:
+                s1, i1 = fused_topk_cuda(whole, queries, k, m)
+            else:
+                s1, i1 = _stable_topk(cosine_scores(whole, queries, m).T, k)
+            check(torch.equal(i2, i1.long()), f"sharded top-k {tag}: rows "
+                  f"differ from the one-shard kernel's")
+            err = (s2 - s1).abs()[s1 > -1e29].max().item()
+            check(err <= 1e-6 and bool(((s1 > -1e29) == (s2 > -1e29)).all()),
+                  f"sharded top-k {tag}: scores differ by {err}")
+            filler = int((i2 == -1).sum())
+            if tag == "k=16 sparse":
+                check(filler == 8 * (k - len(few)), f"sparse: {filler} "
+                      f"filler rows")
+                ties = int(((s2[:, 1:] == s2[:, :-1])
+                            & (s2[:, 1:] > -1e29)).sum())
+                check(ties > 0, "sparse: no tied scores among the twins")
+            ms = cuda_ms(lambda: local_candidates(blocks, queries, k, m),
+                         reps=5)
+            ms1 = cuda_ms((lambda: fused_topk_cuda(whole, queries, k, m))
+                          if k <= 128 else (lambda: _stable_topk(
+                              cosine_scores(whole, queries, m).T, k)),
+                          reps=5)
+            rec[tag] = {"ms_dp2": ms, "ms_one": ms1, "max_abs_err": err,
+                        "filler": filler, "by_shard": shards}
+            log(f"sharded search {tag}, N={n} D={LANE_DIM} Q=8 over mesh "
+                f"{mesh.shape} ({how}): rows identical to the one-shard "
+                f"{'K2' if k <= 128 else 'K3 + sort'} (score err {err:.3g}, "
+                f"{filler} filler rows); dp=2 {ms:.3f} ms, one shard "
+                f"{ms1:.3f} ms (events; the shards time-share the card when "
+                f"the mesh is virtual); launches by shard {shards} [{card}]")
+        # the operator CLI's pod path on the store (in this process)
+        keep = (lambda key: key is not None
+                and not key.startswith(P.SEARCH_SCRATCH_PREFIX))
+        cli = {}
+        for limit in (10, 200):
+            _cuda.LAUNCHES.reset()
+            t1 = time.perf_counter()
+            rc, text = _spt_here(lane_path, [
+                "search", "--sharded", "--json", "--timeout", "120000",
+                "--limit", str(limit), qtext])
+            wall = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            check(rc == 0, f"spt search --sharded --limit {limit}: exit {rc}")
+            launches[f"cli {limit}"] = {kk: _cuda.LAUNCHES[kk]
+                                        for kk in SHARD_KERNELS}
+            got = json.loads(text)
+            want = _plain_rows(st, whole, q, mask, limit, keep)
+            swaps = _same_rows(f"spt search --sharded --limit {limit}", got,
+                               [(kk, sc) for kk, sc, _ in want], 2e-6)
+            check(all(r["slot"] == w[2] for r, w in zip(got, want)
+                      if r["key"] == w[0]), "sharded rows: wrong slots")
+            cli[limit] = {"wall_s": wall, "swaps": swaps}
+            log(f"sharded search, `spt search --sharded --limit {limit}`: "
+                f"{len(got)} rows equal the plain version ({swaps} near-tie "
+                f"swaps) in {wall:.2f}s (the lane staged on the host's one "
+                f"mesh shard per card, embed round trip included); "
+                f"launches {launches[f'cli {limit}']} [{card}]")
+        out["search"] = dict(rec, cli=cli, stage_s=stage_s)
+    finally:
+        stop.set()
+        if th is not None:
+            th.join(timeout=30)
+        st.close()
+    return launches
+
+
+def _sharded_refusal(card, out):
+    """completer.main --tp 2 on a host with one card exits nonzero
+    naming the count (with two or more cards the mesh is real)."""
+    import torch
+
+    from libsplinter_tpu_torch.engine import completer as tcomp
+
+    if torch.cuda.device_count() >= 2:
+        log(f"sharded: {torch.cuda.device_count()} cards, --tp 2 has its "
+            f"mesh; no refusal to show [{card}]")
+        return
+    try:
+        tcomp.main(["--store", f"/spt-smoke-never-{os.getpid()}", "--tp",
+                    "2", "--oneshot"])
+    except SystemExit as ex:
+        msg = str(ex.code)
+        check(ex.code not in (0, None) and "this host has 1" in msg,
+              f"completer --tp 2 on one card: {msg}")
+        log(f"sharded: `completer.main --tp 2` on one card exits nonzero: "
+            f"{msg} [{card}]")
+        out["refusal"] = msg
+        return
+    check(False, "completer --tp 2 on one card did not refuse")
+
+
+def phase_sharded(card, timings, tmp, results, lane_path):
+    """Sharded serving on the card: the per-shard K4 and K5 shapes
+    against their plain versions, the continuous lane at tp = 2 (f32
+    tokens identical to tp = 1, bf16 agreement), the tp = 2 self-draft,
+    the tp = 2 split lanes, MoE at ep = 2 x tp = 2, sharded search and
+    `spt search --sharded`, and the --tp refusal on one card.  Returns
+    (launches by path, the sums by kernel)."""
+    import torch
+
+    t0 = time.perf_counter()
+    mesh, how = _shard_mesh(tp=2)
+    log(f"sharded: mesh {mesh.shape} ({how}) [{card}]")
+    phase_causal(results, SHARD_CAUSAL_CASES)
+    phase_paged(results, SHARD_PAGED_CASES, h=6)
+    out: dict = {"mesh": how}
+    prompts = _variant_prompts(np.random.default_rng(11), 16)
+    launches = _sharded_lanes(card, mesh, prompts, out, tmp)
+    launches["moe"] = _sharded_moe(card, dict(list(prompts.items())[:8]),
+                                   out)
+    launches.update(_sharded_search(card, lane_path, out))
+    _sharded_refusal(card, out)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    sums = dict.fromkeys(SHARD_KERNELS, 0)
+    for path in launches.values():
+        for k, v in path.items():
+            sums[k] += v
+    check(all(sums[k] > 0 for k in SHARD_KERNELS),
+          f"sharded: a kernel never ran: {sums}")
+    out["wall_s"] = wall
+    timings["sharded"] = out
+    log(f"sharded phase: {wall:.1f}s; launches by path "
+        f"{json.dumps(launches)} [{card}]")
+    return launches, sums
+
+
 def _lane_slots(requested: int) -> int:
     """The requested slot count, cut to 262,144 when the temp dir
     cannot hold the file-backed store (~11.5 KB per slot mapped)."""
@@ -4828,6 +5209,13 @@ def main() -> int:
             for k, v in path.items():
                 counts[k] += v
         timings["cli_launches"] = dict(cli, cli=cli_counts)
+        # sharded serving: K2-K5 at their per-shard shapes on each path,
+        # each counted from 0 just before it runs
+        sharded, sharded_sums = phase_sharded(
+            card, timings, tmp, results, os.path.join(tmp, "lane.spt"))
+        for k, v in sharded_sums.items():
+            counts[k] += v
+        timings["sharded_launches"] = sharded
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

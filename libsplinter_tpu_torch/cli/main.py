@@ -82,6 +82,7 @@ class Session:
                                         # (search caches the device lane
                                         # across REPL cmds)
         self._lane = None               # the lane last searched (metrics)
+        self.pod_search = None          # PodSearch, lazy (search --sharded)
 
     @property
     def store(self) -> Store:
@@ -119,6 +120,7 @@ class Session:
     def close(self) -> None:
         self._lanes.clear()
         self._lane = None
+        self.pod_search = None
         if self._store is not None:
             self._store.close()
             self._store = None

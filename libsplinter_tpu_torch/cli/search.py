@@ -8,7 +8,10 @@ candidate — except the scoring is the hand-written CUDA cosine kernel
 instead of a scalar C loop, or the search daemon's fused top-k.  The
 card is the default; --cpu scores with the kernels' plain versions, and
 a host without CUDA refuses the local path rather than scoring on the
-CPU in silence.  --sharded (the pod path) waits for the multi-GPU slice.
+CPU in silence.  --sharded runs the pod path (parallel/sharded_search
+PodSearch): the lane split over the mesh of this host's cards (CPU shards
+with --cpu), each shard's local top-k on K2 (K3 past k = 128), merged
+across shards and, with several worker processes, across hosts.
 """
 from __future__ import annotations
 
@@ -122,15 +125,60 @@ def cmd_search(ses, args):
 
     rows = []
     if qvec is not None and opts["sharded"]:
-        # pod path: the multi-GPU slice is not ported; retire the
-        # scratch key and refuse (never a quiet single-card search)
+        # pod path: this host's lane rows join the global sharded
+        # matrix (global row g = host * local_pad + slot; every host
+        # padded to the same local_pad); the shards' candidates merge
+        # on the device, the hosts' over the gloo group.  Must run
+        # collectively on every worker.  The local bloom/epoch mask
+        # prefilters this host's rows; our own scratch row is masked
+        # out, other hosts mask their own.
+        from ..parallel import PodSearch
+        if ses.pod_search is None:
+            try:
+                ses.pod_search = PodSearch(
+                    st, device="cpu" if opts["cpu"] else "cuda")
+            except RuntimeError as e:
+                try:
+                    st.unset(scratch)
+                except KeyError:
+                    pass
+                raise CliError(f"{e}; `search --sharded --cpu` scores on "
+                               "the CPU") from None
         try:
-            st.unset(scratch)
+            mask[st.find_index(scratch)] = 0.0
         except KeyError:
             pass
-        raise CliError("search --sharded needs the multi-GPU slice "
-                       "(ROADMAP.md Queue A item 5), not yet ported; "
-                       "drop --sharded to search this card's lane")
+        # over-fetch and GROW until --limit is satisfied: key_ok drops
+        # regex misses and stale __sqtmp_ scratch rows (left by crashed
+        # searches on any host; each host masks only its own current
+        # scratch), and scratch rows hold query embeddings so they rank
+        # at the very top for repeated queries.  The growth is
+        # collectively consistent (same keys, same opts on every
+        # worker) and stays on the shared bucket schedule
+        from ..parallel.sharded_search import _bucket
+        fetch_k = _bucket(opts["limit"] + (8 if opts["regex"] else 4))
+        while True:
+            hits = ses.pod_search.search(qvec, fetch_k, mask=mask,
+                                         mxu_bf16=opts["fast"])
+            rows.clear()
+            satisfied = False
+            for h in hits:
+                if not key_ok(h["key"]):
+                    continue
+                sim = round(h["similarity"], 6)
+                if opts["similarity"] is not None and \
+                        sim < opts["similarity"]:
+                    satisfied = True          # sorted desc: all below now
+                    break
+                rows.append({"key": h["key"], "host": h["host"],
+                             "slot": h["slot"], "similarity": sim,
+                             "distance": None})
+                if len(rows) >= opts["limit"]:
+                    satisfied = True
+                    break
+            if satisfied or len(hits) < fetch_k:
+                break                         # done, or candidates exhausted
+            fetch_k *= 8                      # stays on the bucket schedule
     elif qvec is not None and mask.any():
         served = None
         if not opts["cpu"] and not opts["local"]:
@@ -191,6 +239,7 @@ def _daemon_search(st, scratch, qvec, opts, key_ok) -> list[dict] | None:
     cutoffs are client-side concerns, and the growth stays on the
     daemon's bucketed fetch-k schedule."""
     from ..engine.searcher import consume_result, submit_search
+    from ..parallel.sharded_search import _bucket
 
     fetch_k = _bucket(opts["limit"] + (8 if opts["regex"] else 4))
     rows: list[dict] = []
@@ -272,10 +321,3 @@ def _local_search(ses, st, qvec, mask, opts, key_ok) -> list[dict]:
             break
     return rows
 
-
-def _bucket(n: int) -> int:
-    """Shared pad bucket: few distinct sizes -> few compiled programs."""
-    b = 8
-    while b < n:
-        b *= 8
-    return b

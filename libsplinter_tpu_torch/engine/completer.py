@@ -45,8 +45,9 @@ with an acceptance floor that demotes to the plain target
 (--kv-tier-pages, its warm snapshots with --kv-tier-persist;
 engine/kv_tier.py) and the disaggregated prefill/decode lanes (--phase;
 engine/disagg.py subclasses this daemon through the _lane_* hooks
-below).  Not ported yet: sharded serving (--tp, --ep) — ``main`` refuses
-those flags instead of serving another way.
+below) and sharded serving (--tp, --ep: parallel/serve.py over a mesh of
+the host's cards, or of CPU shards with --device cpu; a host without the
+cards refuses to start).
 """
 from __future__ import annotations
 
@@ -1074,6 +1075,9 @@ class Completer:
         B = self.paged_batch_cap
         cfg = m.cfg
         cache = self._ensure_paged_cache()
+        # a sharded lane's dispatch has a fault site of its own, so the
+        # chaos matrix can crash or raise inside a sharded decode
+        sharded = getattr(m, "mesh", None) is not None
         self._running = True
         deadline = (time.monotonic() + stop_after) if stop_after else None
         last = st.signal_count(self.group)
@@ -1480,6 +1484,7 @@ class Completer:
                             # retire with their wrapper and a fresh pool
                             # serves the plain model
                             m = self._model
+                            sharded = getattr(m, "mesh", None) is not None
                             self._paged_cache = None
                             cache = self._ensure_paged_cache()
                             bp_memo.clear()
@@ -1523,6 +1528,8 @@ class Completer:
                         continue
 
                     td = time.perf_counter()
+                    if sharded:
+                        fault("completer.sharded_dispatch")
                     pend = m.paged_decode_chunk_async(
                         cache, fresh, step, carry=carry)
                     live = [(r, rows[r]["serial"]) for r in range(B)
@@ -1707,6 +1714,23 @@ class Completer:
                 "(target model) for the rest of the run")
             self._model = m.target
 
+    def _pool_shard_occupancy(self) -> dict:
+        """Per-tp-position view of the paged pool, MEASURED from the
+        shards' device tensors: each key is the head position a shard's
+        kv-head slice covers (replicas of a slice count once), shard_mb
+        its pool bytes (k + v + scales, all layers).  Page counts are
+        the shared scheduler's (every shard backs every page at its
+        slice), so a pool that was not split shows one key and the
+        whole pool's bytes instead of a fabricated uniform split."""
+        cache = self._paged_cache
+        try:
+            return {str(p.head_pos): {
+                "free": cache.free_pages, "used": cache.used_pages,
+                "shard_mb": round(p.nbytes() / 1e6, 3)}
+                for p in cache.head_order()}
+        except Exception:
+            return {}            # obs must never take the lane down
+
     def publish_stats(self) -> None:
         """Heartbeat: JSON stats snapshot into the debug-labeled
         __completer_stats key (the structured counterpart of the
@@ -1714,8 +1738,8 @@ class Completer:
         it).  SPTPU_TRACE=1 adds histogram-sourced INFER_STAGES
         quantiles, recorder accounting, and the slow log.  The fields
         are the JAX daemon's dense- and continuous-lane ones, its KV-tier
-        and speculative gauges and the split lanes' sections (the
-        sharded gauges arrive with that lane)."""
+        and speculative gauges, the split lanes' sections and a sharded
+        lane's tp degree and per-shard pool occupancy."""
         self.spans.flush()            # heartbeat cadence, off the
         payload = dataclasses.asdict(self.stats)      # wake path
         payload["spans_obs"] = self.spans.counters()
@@ -1796,6 +1820,11 @@ class Completer:
                 payload["tier_demoted"] = pc.demoted_pages()
             if self._tier_store is not None:
                 payload["tier_snapshot_epoch"] = self._tier_store.epoch
+        mesh = getattr(m_now, "mesh", None)
+        if mesh is not None:
+            # a sharded lane: the tensor-parallel degree rides the
+            # heartbeat (sptpu_completer_tp)
+            payload["tp"] = int(mesh.shape.get("tp", 1))
         if cache is not None:
             # the pool's storage dtype and the bytes of its device
             # tensors (values + scales)
@@ -1803,6 +1832,10 @@ class Completer:
             payload["pool_mb"] = cache.device_mb()
             self._pool_mb_peak = max(self._pool_mb_peak, payload["pool_mb"])
             payload["pool_mb_peak"] = round(self._pool_mb_peak, 3)
+            if mesh is not None and payload["tp"] > 1:
+                shards = self._pool_shard_occupancy()
+                if shards:
+                    payload["pages_shard"] = shards
         if faults.armed():
             payload["faults"] = faults.stats()
         payload["compile_events"] = DEVTIME.compile_events(self.LANE)
@@ -1885,24 +1918,25 @@ class Completer:
         self._running = False
 
 
-# flags of the JAX daemon whose lanes the port does not have yet: each
-# refuses to start rather than serve another way (see ROADMAP.md)
-_NOT_PORTED = (
-    ("tp", "--tp", "Queue A, multi-GPU: tensor-parallel serving"),
-    ("ep", "--ep", "Queue A, multi-GPU: expert parallelism"),
-)
+def _serving_mesh(args):
+    """The mesh --tp/--ep ask for on --device's device type, or None for
+    one device.  A host with fewer cards than tp * ep refuses to start:
+    never a CPU lane, never a quiet tp = 1."""
+    if args.tp <= 1 and args.ep <= 1:
+        return None
+    import torch
 
-
-def _refuse_not_ported(args) -> None:
-    """SystemExit naming the first not-yet-ported option that is set
-    (`--tp 1` and `--ep 1` name this very lane)."""
-    this_lane = {"tp": 1, "ep": 1}
-    for dest, flag, where in _NOT_PORTED:
-        if getattr(args, dest) not in (None, False, this_lane.get(dest)):
-            raise SystemExit(
-                f"{flag} is not yet ported to the torch package (ROADMAP "
-                f"{where}); the JAX daemon, python -m "
-                "libsplinter_tpu.engine.completer, serves it")
+    from ..parallel.mesh import make_mesh
+    kind = torch.device(args.device).type
+    try:
+        mesh = make_mesh(tp=args.tp, ep=args.ep, device=kind)  # dp inferred
+    except (ValueError, RuntimeError) as e:      # too few cards
+        raise SystemExit(
+            f"--tp {args.tp} --ep {args.ep} needs {args.tp * args.ep} "
+            f"{kind} devices in its mesh; this host has "
+            f"{torch.cuda.device_count()} ({e})") from None
+    log.info("sharded decode: tp=%d ep=%d over %s", args.tp, args.ep, mesh)
+    return mesh
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2058,12 +2092,19 @@ def main(argv: list[str] | None = None) -> int:
                          "plain decode for the rest of the run (0 "
                          "disables; the heartbeat publishes "
                          "spec_acceptance)")
-    not_ported = ap.add_argument_group(
-        "not yet ported (the JAX daemon's; each refuses to start)")
-    for flag in ("--tp", "--ep"):
-        not_ported.add_argument(flag, type=int, default=None)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: shard the decoder "
+                         "(weights + KV caches, the paged pools on kv "
+                         "heads with --continuous) over a tp-axis mesh "
+                         "of this many devices (parallel/serve.py; must "
+                         "divide the model's heads and kv_heads).  With "
+                         "--device cuda the host must have the cards")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel degree for MoE checkpoints: "
+                         "shard the stacked expert FFNs over an ep mesh "
+                         "axis (must divide the model's expert_count; "
+                         "composes with --tp)")
     args = ap.parse_args(argv)
-    _refuse_not_ported(args)
     if args.weights == "int8":
         args.weights = None
         args.weights_int8 = True
@@ -2131,6 +2172,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.weights_int8:
         fault("completer.weight_quant")
         cfg = dataclasses.replace(cfg, weights_int8=True)
+    mesh = _serving_mesh(args)
     mkw = dict(weights=args.weights, top_p=args.top_p, temp=args.temp,
                device=args.device)
     if isinstance(cfg, MoeDecoderConfig):
@@ -2138,7 +2180,10 @@ def main(argv: list[str] | None = None) -> int:
         # daemon stack serves it (models/moe.py)
         log.info("MoE checkpoint: %d experts, top-%d routing",
                  cfg.n_experts, cfg.top_k)
-        model = moe_completion_model(cfg, **mkw)
+        model = moe_completion_model(cfg, mesh, **mkw)
+    elif mesh is not None:
+        from ..parallel.serve import ShardedCompletionModel
+        model = ShardedCompletionModel(cfg, mesh, **mkw)
     else:
         model = CompletionModel(cfg, **mkw)
     if args.draft_weights:

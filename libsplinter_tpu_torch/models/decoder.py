@@ -82,6 +82,9 @@ class DecoderConfig:
     # prefill chunks at/above this width attend through kernel K4: long
     # prompts stop materialising (B, H, S, T) logits.  0 = off.
     flash_min_seq: int = 512
+    # tensor-parallel shards this config describes ONE of (shard()):
+    # heads, kv_heads and mlp_dim are then that shard's; 1 = the model
+    tp: int = 1
 
     @classmethod
     def tiny(cls, **kw) -> "DecoderConfig":
@@ -93,7 +96,27 @@ class DecoderConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.hidden // self.heads
+        return self.hidden // (self.heads * self.tp)
+
+    def shard(self, tp: int, ep: int = 1,
+              ep_index: int = 0) -> "DecoderConfig":
+        """The per-shard geometry of a tensor-parallel shard: heads/tp
+        query heads, kv_heads/tp kv heads and mlp_dim/tp MLP lanes (the
+        column-parallel outputs and row-parallel inputs it holds); the
+        head width and everything else stay the model's.  A dense
+        decoder replicates over the ep axis, so ep and ep_index are
+        accepted and unused here (moe.MoeDecoderConfig splits experts
+        on them)."""
+        del ep, ep_index
+        if self.tp != 1:
+            raise ValueError("shard() takes the whole model's config")
+        for name in ("heads", "kv_heads", "mlp_dim"):
+            if getattr(self, name) % tp:
+                raise ValueError(f"{name}={getattr(self, name)} must "
+                                 f"divide the tp={tp} mesh axis")
+        return dataclasses.replace(
+            self, heads=self.heads // tp, kv_heads=self.kv_heads // tp,
+            mlp_dim=self.mlp_dim // tp, tp=tp)
 
 
 def init_cache(cfg: DecoderConfig, batch: int, device=None):
@@ -184,16 +207,71 @@ def _quant_append_int4(pool, scales, bids, offs, x):
     return pool, scales
 
 
-class PagedKVCache:
-    """Block-paged KV pool for the continuous-batching decode lane.
-
-    Per layer, on the model's device:
+class PagePools:
+    """The device half of a PagedKVCache: ONE shard's per-layer pools
+    on its device,
 
         k_pools / v_pools: (n_blocks, kv_heads, page, head_dim)
 
     (head_dim / 2 uint8 bytes for int4), plus for quantized pools
-    k_scales / v_scales (n_blocks, kv_heads) f32, and on the host a
-    (batch, pages_per_row) int32 block table and (batch,) lengths.
+    k_scales / v_scales (n_blocks, kv_heads) f32.  Every pool is its own
+    contiguous tensor: a tensor-parallel shard's pool holds its kv-head
+    slice whole, never as a view of a wider pool (kernel K5 takes
+    contiguous pools).  `head_pos` is the slice's position in head
+    order (0 when unsharded)."""
+
+    def __init__(self, layers: int, n_blocks: int, kv_heads: int,
+                 page: int, width: int, store_dtype, quantized: bool,
+                 device, head_pos: int = 0):
+        self.device = device
+        self.head_pos = head_pos
+        shape = (n_blocks, kv_heads, page, width)
+
+        def zeros(shp, dtype):
+            return [torch.zeros(shp, dtype=dtype, device=device)
+                    for _ in range(layers)]
+
+        self.k_pools = zeros(shape, store_dtype)
+        self.v_pools = zeros(shape, store_dtype)
+        if quantized:
+            self.k_scales = zeros((n_blocks, kv_heads), torch.float32)
+            self.v_scales = zeros((n_blocks, kv_heads), torch.float32)
+        else:
+            self.k_scales = self.v_scales = None
+
+    def layers(self) -> list[tuple]:
+        """Per layer (k_pool, v_pool), or (k_pool, v_pool, k_scales,
+        v_scales) for a quantized pool."""
+        if self.k_scales is not None:
+            return list(zip(self.k_pools, self.v_pools, self.k_scales,
+                            self.v_scales))
+        return list(zip(self.k_pools, self.v_pools))
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every device tensor: k pools, v pools, then the scales."""
+        out = list(self.k_pools) + list(self.v_pools)
+        if self.k_scales is not None:
+            out += list(self.k_scales) + list(self.v_scales)
+        return out
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self.tensors())
+
+
+class PagedKVCache:
+    """Block-paged KV pool for the continuous-batching decode lane: a
+    host-side page scheduler over the device pools of one or more
+    shards (PagePools).
+
+    Per layer, on each shard's device: (n_blocks, kv_heads / shards,
+    page, head_dim) k and v pools (head_dim / 2 uint8 bytes for int4),
+    plus for quantized pools (n_blocks, kv_heads / shards) f32 scales;
+    on the host a (batch, pages_per_row) int32 block table and (batch,)
+    lengths.  `shards` lists (device, head position) per pool: a
+    tensor-parallel model's shards each hold every page at their kv-head
+    slice (replicas of one slice share a position), and one scheduler
+    drives them all — a block id names the same page in every pool.
+    Without `shards` the cache is one whole pool on `device`.
     Block 0 is the reserved TRASH block: never allocated, every unused
     table entry points at it, so dead rows' appends land harmlessly and
     gathers of unused pages read garbage the ragged length mask hides.
@@ -208,7 +286,8 @@ class PagedKVCache:
 
     def __init__(self, cfg: DecoderConfig, batch: int, *,
                  page: int = 128, pool_pages: int | None = None,
-                 kv_dtype: str | None = None, device=None):
+                 kv_dtype: str | None = None, device=None,
+                 shards: list[tuple] | None = None):
         if page < 1:
             raise ValueError("page must be >= 1")
         self.cfg = cfg
@@ -231,23 +310,19 @@ class PagedKVCache:
             raise ValueError(
                 f"kv_dtype=\"int4\" packs two codes per byte along "
                 f"head_dim; head_dim={cfg.head_dim} must be even")
-        self.device = resolve_device(device)
-        shape = (self.n_blocks, cfg.kv_heads, page,
-                 cfg.head_dim // 2 if self.packed else cfg.head_dim)
-
-        def zeros(shp, dtype):
-            return [torch.zeros(shp, dtype=dtype, device=self.device)
-                    for _ in range(cfg.layers)]
-
-        self.k_pools = zeros(shape, store_dtype)
-        self.v_pools = zeros(shape, store_dtype)
-        if self.quantized:
-            self.k_scales = zeros((self.n_blocks, cfg.kv_heads),
-                                  torch.float32)
-            self.v_scales = zeros((self.n_blocks, cfg.kv_heads),
-                                  torch.float32)
-        else:
-            self.k_scales = self.v_scales = None
+        self.sharded = shards is not None
+        if shards is None:
+            shards = [(resolve_device(device), 0)]
+        self.device = shards[0][0]
+        self.head_shards = 1 + max(pos for _, pos in shards)
+        if cfg.kv_heads % self.head_shards:
+            raise ValueError(f"kv_heads={cfg.kv_heads} must divide the "
+                             f"{self.head_shards} head shards")
+        width = cfg.head_dim // 2 if self.packed else cfg.head_dim
+        self.pools = [PagePools(cfg.layers, self.n_blocks,
+                                cfg.kv_heads // self.head_shards, page,
+                                width, store_dtype, self.quantized, dev,
+                                pos) for dev, pos in shards]
         self.tables = np.zeros((batch, self.pages_per_row), np.int32)
         self.lengths = np.zeros((batch,), np.int32)
         self._free = list(range(self.n_blocks - 1, 0, -1))
@@ -256,13 +331,28 @@ class PagedKVCache:
         self.prefix_cache = None
         self._ever_shared = False
 
-    def layers(self) -> list[tuple]:
-        """Per layer (k_pool, v_pool), or (k_pool, v_pool, k_scales,
-        v_scales) for a quantized pool — the decoder's paged cache."""
-        if self.quantized:
-            return list(zip(self.k_pools, self.v_pools, self.k_scales,
-                            self.v_scales))
-        return list(zip(self.k_pools, self.v_pools))
+    # shard 0's pools (the whole pool when unsharded)
+    k_pools = property(lambda self: self.pools[0].k_pools)
+    v_pools = property(lambda self: self.pools[0].v_pools)
+    k_scales = property(lambda self: self.pools[0].k_scales)
+    v_scales = property(lambda self: self.pools[0].v_scales)
+
+    def layers(self) -> list:
+        """The decoder's paged cache: per layer (k_pool, v_pool), or
+        (k_pool, v_pool, k_scales, v_scales) for a quantized pool — and
+        for a sharded pool one such list per shard (what the sharded
+        trunk, parallel/serve.ShardedDecoder, takes)."""
+        if not self.sharded:
+            return self.pools[0].layers()
+        return [p.layers() for p in self.pools]
+
+    def head_order(self) -> list[PagePools]:
+        """One shard per kv-head slice, in head order (the first of any
+        replicas): what the page wire gathers and scatters."""
+        first: dict[int, PagePools] = {}
+        for p in self.pools:
+            first.setdefault(p.head_pos, p)
+        return [first[i] for i in range(self.head_shards)]
 
     @property
     def free_pages(self) -> int:
@@ -406,12 +496,8 @@ class PagedKVCache:
 
     def device_mb(self) -> float:
         """Pool bytes of the device tensors (values + scales, all
-        layers, k and v), in MB."""
-        arrs = list(self.k_pools) + list(self.v_pools)
-        if self.quantized:
-            arrs += list(self.k_scales) + list(self.v_scales)
-        total = sum(a.numel() * a.element_size() for a in arrs)
-        return round(total / 1e6, 3)
+        layers, k and v, every shard), in MB."""
+        return round(sum(p.nbytes() for p in self.pools) / 1e6, 3)
 
 
 class PendingChunk:
@@ -589,10 +675,16 @@ class DecoderLayer(nn.Module):
                 tables=None, n_valid=None):
         x = x + self.attn(self.ln_attn(x), cache_kv, pos, start, rotary,
                           lengths, tables, n_valid)
-        h = self.ln_mlp(x)
+        return x + self.mlp(self.ln_mlp(x))
+
+    def mlp(self, h):
+        """The MLP half.  With attn (its out projection), one of the two
+        places a tensor-parallel shard returns a PARTIAL sum: the
+        sharded trunk (parallel/serve.ShardedDecoder) reduces each
+        across its shards before the residual add."""
         if self.mlp_cls is not None:
-            return x + self.moe(h)
-        return x + self.down(F.silu(self.gate(h)) * self.up(h))
+            return self.moe(h)
+        return self.down(F.silu(self.gate(h)) * self.up(h))
 
 
 class Decoder(nn.Module):
@@ -644,6 +736,32 @@ class Decoder(nn.Module):
         if last is not None:
             x = x[:, last:last + 1]
         return self.lm_head(x.float())
+
+
+def quantize_params(cfg: DecoderConfig, params: dict) -> dict:
+    """A float state_dict quantized for cfg's int8 residency (idempotent:
+    int8 leaves pass through); unchanged for a float residency."""
+    if not (cfg.quantized or cfg.weights_int8):
+        return params
+    return quantize_state_dict(
+        params, QUANT_LEAVES, mode="channel" if cfg.weights_int8 else "block")
+
+
+@torch.no_grad()
+def seat_module(module: Decoder, params: dict | None) -> Decoder:
+    """Load `params` (None keeps the weights the module holds), then put
+    the projections and the embedding table in the activation dtype; the
+    norms and the LM head stay f32 (flax's param/compute dtypes),
+    int8-resident projections their codes and f32 scales (MoeMlp keeps
+    its own dtypes: an f32 router, experts created in the activation
+    dtype).  Returns the module in eval mode without gradients."""
+    if params is not None:
+        module.load_state_dict(params)
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)) \
+                and m is not module.lm_head:
+            m.to(module.cfg.dtype)
+    return module.eval().requires_grad_(False)
 
 
 @torch.no_grad()
@@ -816,28 +934,14 @@ class CompletionModel:
     def _build(self, cfg: DecoderConfig, seed: int, params, mlp_cls):
         """The trunk on this model's device: seeded or loaded weights,
         a float state_dict quantized first for an int8 residency."""
-        if params is not None and (cfg.quantized or cfg.weights_int8):
-            params = quantize_state_dict(
-                params, QUANT_LEAVES,
-                mode="channel" if cfg.weights_int8 else "block")
         with torch.device(self.device):
             module = Decoder(cfg, mlp_cls)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             init_params(module, gen)
-        else:
-            module.load_state_dict(params)
-        # projections and the embedding table in the activation dtype;
-        # the norms and the LM head stay f32 (flax's param/compute
-        # dtypes), int8-resident projections their codes and f32 scales
-        # (MoeMlp keeps its own dtypes: an f32 router, experts created
-        # in the activation dtype)
-        for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)) \
-                    and m is not module.lm_head:
-                m.to(cfg.dtype)
-        return module.eval().requires_grad_(False)
+            return seat_module(module, None)
+        return seat_module(module, quantize_params(cfg, params))
 
     def bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -862,6 +966,35 @@ class CompletionModel:
         signal: a count still growing after warmup means some serving
         geometry escapes the bucket set."""
         return len(self._shapes)
+
+    # -- cache layout hooks (parallel/serve.ShardedCompletionModel keeps
+    # one cache per shard and overrides these) ---------------------------
+
+    def _fresh_cache(self, batch: int):
+        """A zeroed dense cache of `batch` rows for the trunk."""
+        return init_cache(self.cfg, batch, self.device)
+
+    def _row_cache(self, row: int):
+        """Views of one row of the live batched cache; the trunk writes
+        through them."""
+        return [(k[row:row + 1], v[row:row + 1]) for k, v in self._cache]
+
+    def _cache_rows(self) -> int:
+        return self._cache[0][0].shape[0]
+
+    def _paged_scratch(self, bucket: int):
+        """A paged prefill's (1, bucket) dense scratch cache."""
+        return init_cache(dataclasses.replace(self.cfg, max_len=bucket), 1,
+                          self.device)
+
+    def _pool_shards(self):
+        """(device, head position) of each paged pool; None: one whole
+        pool on the model's device."""
+        return None
+
+    def _per_shard(self, cache) -> list:
+        """A dense cache as a list of per-shard caches."""
+        return [cache]
 
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
@@ -899,7 +1032,7 @@ class CompletionModel:
         # slots n..b-1 hold pad-token K/V, but a query at slot p attends
         # only j <= p, and every slot <= p is rewritten with real data
         # before the first query that could see it
-        self._cache = init_cache(self.cfg, 1, self.device)
+        self._cache = self._fresh_cache(1)
         logits = self._fn(self._ids(ids), self._cache, 0, last=n - 1)
         self._pos, self._start, self._batch = n, None, 1
         return _host(logits[0, 0], "completer.trunk")
@@ -1024,7 +1157,7 @@ class CompletionModel:
         for r, p in enumerate(prompts):
             ids[r, b - lens[r]:] = p
             start[r] = b - lens[r]
-        self._cache = init_cache(self.cfg, bp, self.device)
+        self._cache = self._fresh_cache(bp)
         self._start = torch.from_numpy(start).to(self.device)
         # every row's last REAL token sits in the last slot (left pad)
         logits = self._fn(self._ids(ids), self._cache, 0, self._start,
@@ -1040,7 +1173,7 @@ class CompletionModel:
             raise RuntimeError("prefill_batch first")
         if self._pos + n > self.cfg.max_len:
             raise RuntimeError("context window full")
-        toks = np.zeros((self._cache[0][0].shape[0],), np.int64)
+        toks = np.zeros((self._cache_rows(),), np.int64)
         toks[: self._batch] = np.asarray(tokens, np.int64)
         out = self._chunk_fn(self._ids(toks), n)
         self._pos += n
@@ -1068,8 +1201,7 @@ class CompletionModel:
         start_row = torch.tensor([self._pos - n], dtype=torch.int32,
                                  device=self.device)
         # row views of the batch cache: the forward writes through them
-        row_cache = [(k[row:row + 1], v[row:row + 1]) for k, v in self._cache]
-        logits = self._fn(self._ids(ids), row_cache, self._pos - b,
+        logits = self._fn(self._ids(ids), self._row_cache(row), self._pos - b,
                           start_row, last=b - 1)
         self._start[row] = self._pos - n
         return _host(logits[0, 0], "completer.trunk")
@@ -1151,7 +1283,7 @@ class CompletionModel:
                             pool_pages=pool_pages,
                             kv_dtype=(self.kv_dtype if kv_dtype is None
                                       else kv_dtype),
-                            device=self.device)
+                            device=self.device, shards=self._pool_shards())
 
     @torch.no_grad()
     def _paged_commit(self, cache: PagedKVCache, dense, bids, n_valid: int):
@@ -1163,36 +1295,39 @@ class CompletionModel:
         prompt's n_valid are zeroed first (pad K/V would inflate the
         page scale), then each (page, kv head) gets d = absmax / qmax
         and its codes (int4: packed two per byte)."""
-        cfg = self.cfg
-        bucket, page = dense[0][0].shape[1], cache.page
+        dense = self._per_shard(dense)
+        bucket, page = dense[0][0][0].shape[1], cache.page
         self._shapes.add(("paged_commit", bucket, page, cache.kv_dtype))
         n_cp = -(-bucket // page)
         pad = n_cp * page - bucket
-        keep = torch.arange(bucket, device=self.device) < n_valid
         qmax = INT4_QMAX if cache.packed else 127.0
 
-        def blocks(x, zero_pad: bool):
+        def blocks(x, keep):
             x = x[0]                                   # (bucket, KH, D)
-            if zero_pad:
+            if keep is not None:
                 x = x.masked_fill(~keep[:, None, None], 0)
             if pad:
                 x = F.pad(x, (0, 0, 0, 0, 0, pad))
-            return x.reshape(n_cp, page, cfg.kv_heads, -1).transpose(1, 2)
+            return x.reshape(n_cp, page, x.shape[1], -1).transpose(1, 2)
 
-        for li, kv in enumerate(cache.layers()):
-            for x, pool, scales in ((dense[li][0], kv[0], kv[2:3]),
-                                    (dense[li][1], kv[1], kv[3:4])):
-                if not cache.quantized:
-                    pool[bids] = blocks(x, False).to(pool.dtype)
-                    continue
-                xb = blocks(x, True).float()
-                d = xb.abs().amax(dim=(2, 3)) / qmax
-                codes = torch.clamp(torch.round(
-                    xb / torch.where(d > 0, d, 1.0)[:, :, None, None]),
-                    -qmax, qmax)
-                pool[bids] = (pack_int4(codes) if cache.packed
-                              else codes.to(torch.int8))
-                scales[0][bids] = d
+        # each shard's pools from its own scratch, at its own kv heads
+        for pools, scratch in zip(cache.pools, dense):
+            b_ids = bids.to(pools.device)
+            keep = torch.arange(bucket, device=pools.device) < n_valid
+            for li, kv in enumerate(pools.layers()):
+                for x, pool, scales in ((scratch[li][0], kv[0], kv[2:3]),
+                                        (scratch[li][1], kv[1], kv[3:4])):
+                    if not cache.quantized:
+                        pool[b_ids] = blocks(x, None).to(pool.dtype)
+                        continue
+                    xb = blocks(x, keep).float()
+                    d = xb.abs().amax(dim=(2, 3)) / qmax
+                    codes = torch.clamp(torch.round(
+                        xb / torch.where(d > 0, d, 1.0)[:, :, None, None]),
+                        -qmax, qmax)
+                    pool[b_ids] = (pack_int4(codes) if cache.packed
+                                   else codes.to(torch.int8))
+                    scales[0][b_ids] = d
         return bids      # a device result, as the devtime wrapper expects
 
     def paged_prefill_row(self, cache: PagedKVCache,
@@ -1216,10 +1351,7 @@ class CompletionModel:
         ids = np.zeros((1, b), np.int64)
         ids[0, :n] = np.asarray(prompt_ids[:n], np.int64)
         # a bucket-sized scratch (not max_len): the trunk runs at T = b
-        shape = (1, b, cfg.kv_heads, cfg.head_dim)
-        scratch = [tuple(torch.zeros(shape, dtype=cfg.dtype,
-                                     device=self.device) for _ in range(2))
-                   for _ in range(cfg.layers)]
+        scratch = self._paged_scratch(b)
         logits = self._fn(self._ids(ids), scratch, 0, last=n - 1)
         # table entries past the prompt's pages are 0 (trash) or the
         # row's reserved decode pages: the bucket's pad rows land there
@@ -1289,12 +1421,10 @@ class CompletionModel:
         side (and the scales), in place — the device half of a
         copy-on-write, queued before the table swap."""
         self._shapes.add(("cow", cache.kv_dtype))
-        pools = list(cache.k_pools) + list(cache.v_pools)
-        if cache.quantized:
-            pools += list(cache.k_scales) + list(cache.v_scales)
-        for p in pools:
-            p[dst] = p[src]
-        return pools[0][dst]   # a device result, as for the commit
+        for shard in cache.pools:       # one block id, every shard's pool
+            for p in shard.tensors():
+                p[dst] = p[src]
+        return cache.k_pools[0][dst]   # a device result, as for the commit
 
     def _cow_fixups(self, cache: PagedKVCache) -> int:
         """Copy-on-write pass before a decode dispatch: every row whose
@@ -1444,25 +1574,42 @@ class CompletionModel:
     def _page_export(self, cache: PagedKVCache, bid: int):
         """Pool page `bid` across every layer: (2 layers, KH, page, D)
         values, k layers first, and for quantized pools (2 layers, KH)
-        f32 scales."""
-        vals = torch.stack([p[bid] for p in (*cache.k_pools,
-                                             *cache.v_pools)])
-        if not cache.quantized:
-            return vals, None
-        return vals, torch.stack([s[bid] for s in (*cache.k_scales,
-                                                   *cache.v_scales)])
+        f32 scales.  A sharded pool's kv-head slices are gathered in
+        head order onto the model's device, so the wire page is the
+        unsharded pool's byte for byte."""
+        vals, scales = [], []
+        for shard in cache.head_order():
+            vals.append(torch.stack([p[bid] for p in (*shard.k_pools,
+                                                      *shard.v_pools)]))
+            if cache.quantized:
+                scales.append(torch.stack([s[bid] for s in (
+                    *shard.k_scales, *shard.v_scales)]))
+
+        def gather(parts):
+            if len(parts) == 1:
+                return parts[0]
+            return torch.cat([p.to(self.device) for p in parts], dim=1)
+
+        return gather(vals), gather(scales) if scales else None
 
     @torch.no_grad()
     def _page_import(self, cache: PagedKVCache, bid: int, vals, scales):
         """Scatter one wire page's stacks (as _page_export returns them)
-        into pool page `bid`, in place."""
+        into pool page `bid`, in place: each shard takes its kv-head
+        slice (replicas of a slice each take a copy)."""
         n_layers = self.cfg.layers
-        for li in range(n_layers):
-            cache.k_pools[li][bid] = vals[li]
-            cache.v_pools[li][bid] = vals[n_layers + li]
-            if scales is not None:
-                cache.k_scales[li][bid] = scales[li]
-                cache.v_scales[li][bid] = scales[n_layers + li]
+        kh = vals.shape[1] // cache.head_shards
+        for shard in cache.pools:
+            lo = shard.head_pos * kh
+            sv = vals[:, lo:lo + kh].to(shard.device)
+            ss = (None if scales is None else
+                  scales[:, lo:lo + kh].to(shard.device))
+            for li in range(n_layers):
+                shard.k_pools[li][bid] = sv[li]
+                shard.v_pools[li][bid] = sv[n_layers + li]
+                if ss is not None:
+                    shard.k_scales[li][bid] = ss[li]
+                    shard.v_scales[li][bid] = ss[n_layers + li]
         return vals
 
     def export_page_bytes(self, cache: PagedKVCache, bid: int

@@ -16,8 +16,15 @@ counterpart of the JAX package's models/moe.py.
 ``MoeDecoder`` is the shared Decoder trunk with ``MoeMlp`` mounted at
 ``layer_<i>.moe`` (decoder.DecoderLayer's mlp_cls hook), so the
 completion daemon's CompletionModel serves it unchanged, prefills
-through K4 and decodes through K5.  Expert parallelism (the JAX
-package's ``ep`` mesh axis) belongs to the multi-GPU slice.
+through K4 and decodes through K5.
+
+Expert parallelism: over a mesh the stacked expert tensors split their
+expert axis on ``ep`` (parallel/mesh.decoder_param_pspec).  An ep
+shard's MoeMlp holds n_experts/ep experts from ``expert_base``, routes
+over ALL experts (the router replicates) and returns the gated partial
+sum of its own; the sharded trunk (parallel/serve.ShardedDecoder) closes
+each layer with one reduction over ep, and attention splits on tp
+independently.
 """
 from __future__ import annotations
 
@@ -38,6 +45,10 @@ EXPERT_LEAVES = ("gate_experts", "up_experts", "down_experts")
 class MoeDecoderConfig(DecoderConfig):
     n_experts: int = 8
     top_k: int = 2
+    # expert-parallel shards this config describes one of (shard()):
+    # n_experts is then that shard's, its first expert is expert_base
+    ep: int = 1
+    expert_base: int = 0
 
     @classmethod
     def tiny(cls, **kw) -> "MoeDecoderConfig":
@@ -45,6 +56,20 @@ class MoeDecoderConfig(DecoderConfig):
               "kv_heads": 2, "mlp_dim": 128, "max_len": 128,
               "n_experts": 4, "top_k": 2, **kw}
         return cls(**kw)
+
+    def shard(self, tp: int, ep: int = 1,
+              ep_index: int = 0) -> "MoeDecoderConfig":
+        """The (tp, ep) shard's geometry: attention heads split on tp
+        (decoder.DecoderConfig.shard), the experts on ep; the expert
+        FFNs keep their full mlp_dim."""
+        if self.n_experts % ep:
+            raise ValueError(
+                f"n_experts={self.n_experts} must divide the ep={ep} mesh "
+                "axis (expert tensors shard their E dimension)")
+        view = super().shard(tp)
+        n = self.n_experts // ep
+        return dataclasses.replace(view, mlp_dim=self.mlp_dim, n_experts=n,
+                                   ep=ep, expert_base=ep_index * n)
 
 
 class MoeRouter(nn.Module):
@@ -68,7 +93,7 @@ class MoeMlp(nn.Module):
         super().__init__()
         self.cfg = cfg
         e, h, m = cfg.n_experts, cfg.hidden, cfg.mlp_dim
-        self.router = MoeRouter(h, e)
+        self.router = MoeRouter(h, e * cfg.ep)      # routes over all
         self.quantized = cfg.quantized or cfg.weights_int8
         for name, (din, dout) in zip(EXPERT_LEAVES,
                                      ((h, m), (h, m), (m, h))):
@@ -119,6 +144,8 @@ class MoeMlp(nn.Module):
         topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
         gates = torch.zeros_like(probs).scatter(-1, topi, topv)
         gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        # an ep shard combines its own experts: a partial sum over E
+        gates = gates[..., cfg.expert_base:cfg.expert_base + cfg.n_experts]
         gates = gates.to(cfg.dtype)
         xd = x.to(cfg.dtype)
         g = torch.einsum("bsh,ehm->bsem", xd, self.expert("gate_experts"))
@@ -128,21 +155,33 @@ class MoeMlp(nn.Module):
         return torch.einsum("bseh,bse->bsh", out, gates)
 
 
-def MoeDecoder(cfg: MoeDecoderConfig) -> Decoder:
+def _check_ep(cfg: MoeDecoderConfig, mesh) -> None:
+    ep = mesh.shape.get("ep", 1)
+    if cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} must divide the ep={ep} mesh "
+            "axis (expert tensors shard their E dimension)")
+
+
+def MoeDecoder(cfg: MoeDecoderConfig, mesh=None):
     """Causal MoE LM: the shared Decoder trunk with MoeMlp as each
     layer's MLP; the state_dict differs only inside each layer
-    (layer_<i>.moe.{router.weight, *_experts})."""
-    return Decoder(cfg, mlp_cls=MoeMlp)
+    (layer_<i>.moe.{router.weight, *_experts}).  With a mesh: the shard
+    modules of a parallel/serve.ShardedDecoder (attention on tp, experts
+    on ep), their weights as constructed."""
+    if mesh is None:
+        return Decoder(cfg, mlp_cls=MoeMlp)
+    _check_ep(cfg, mesh)
+    from ..parallel.serve import ShardedDecoder
+    return ShardedDecoder.empty(cfg, mesh, MoeMlp)
 
 
 def moe_completion_model(cfg: MoeDecoderConfig, mesh=None,
                          **kw) -> CompletionModel:
-    """CompletionModel over the MoE family on one card.  A mesh (tensor
-    attention + expert-parallel experts) is refused until the multi-GPU
-    slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE serving over a mesh is not yet ported to "
-            "the torch package (ROADMAP Queue A, multi-GPU: parallel/"
-            "serve.py); one card serves the whole model")
-    return CompletionModel(cfg, mlp_cls=MoeMlp, **kw)
+    """CompletionModel over the MoE family; pass a mesh for sharded
+    (tp attention + ep experts) serving."""
+    if mesh is None:
+        return CompletionModel(cfg, mlp_cls=MoeMlp, **kw)
+    _check_ep(cfg, mesh)
+    from ..parallel.serve import ShardedCompletionModel
+    return ShardedCompletionModel(cfg, mesh, mlp_cls=MoeMlp, **kw)

@@ -19,7 +19,9 @@ a threefry key, so only greedy runs can match it.
 
 SELF-DRAFTING (``self_draft_model``): the draft is the target's own
 first k layers plus its embedding, final norm and LM head, the very
-module objects (no parameter is copied).
+module objects (no parameter is copied).  A sharded target's draft is
+a ShardedCompletionModel over the same mesh whose shard modules are
+such views of the target's shards.
 
 Two lanes:
 
@@ -129,42 +131,57 @@ class _ReadySpecChunk:
         return self._block
 
 
+def _layer_view(mod: Decoder, layers: int) -> Decoder:
+    """A Decoder holding `mod`'s tok_emb, ln_out, lm_head and first
+    `layers` layer modules (the objects themselves), built on the meta
+    device so it allocates nothing."""
+    with torch.device("meta"):
+        view = Decoder(dataclasses.replace(mod.cfg, layers=layers))
+    for name in ("tok_emb", "ln_out", "lm_head"):
+        setattr(view, name, getattr(mod, name))
+    for i in range(layers):
+        setattr(view, f"layer_{i}", getattr(mod, f"layer_{i}"))
+    view.rot_cos, view.rot_sin = mod.rot_cos, mod.rot_sin
+    return view
+
+
 def self_draft_model(target: CompletionModel,
                      draft_layers: int) -> CompletionModel:
     """A draft that is the target's OWN first `draft_layers` layers:
     its trunk holds the target's tok_emb, ln_out, lm_head and
     layer_0..layer_{k-1} module objects (no parameter copied, no extra
     device memory beyond the draft's pools).  Works for float and
-    int8-resident targets alike; sampler settings copy from the target,
-    so the acceptance rule divides by the right proposal distribution."""
+    int8-resident targets alike, and for a sharded target
+    (parallel/serve.ShardedCompletionModel: the draft is one over the
+    same mesh, each shard module a view of the target's); sampler
+    settings copy from the target, so the acceptance rule divides by
+    the right proposal distribution."""
     cfg = target.cfg
     if not 1 <= draft_layers < cfg.layers:
         raise ValueError(
             f"draft_layers {draft_layers} must be in [1, "
             f"{cfg.layers - 1}] (a full-depth draft is just the target)")
     mod = target.module
-    if type(mod) is not Decoder or mod.mlp_cls is not None:
+    mesh = getattr(target, "mesh", None)
+    shards = list(getattr(mod, "shards", [mod])) if mesh is not None \
+        else [mod]
+    if any(type(m) is not Decoder or m.mlp_cls is not None
+           for m in shards):
         raise ValueError(
             "self-drafting needs the plain Decoder trunk (layer_i "
             "modules slice cleanly); custom/MoE modules need their own "
             "draft checkpoint")
-    if getattr(target, "mesh", None) is not None:
-        raise NotImplementedError(
-            "a self-draft of a pod-sharded target is not yet ported to "
-            "the torch package (ROADMAP Queue A, multi-GPU: parallel/"
-            "serve.py)")
     dcfg = dataclasses.replace(cfg, layers=draft_layers)
-    with torch.device("meta"):
-        view = Decoder(dcfg)
-    for name in ("tok_emb", "ln_out", "lm_head"):
-        setattr(view, name, getattr(mod, name))
-    for i in range(draft_layers):
-        setattr(view, f"layer_{i}", getattr(mod, f"layer_{i}"))
-    view.rot_cos, view.rot_sin = mod.rot_cos, mod.rot_sin
-    return CompletionModel(
-        dcfg, module=view, buckets=target.buckets, top_p=target.top_p,
-        temp=target.temp, device=target.device, kv_dtype=target.kv_dtype,
-        suffix_buckets=target.suffix_buckets)
+    kw = dict(buckets=target.buckets, top_p=target.top_p,
+              temp=target.temp, kv_dtype=target.kv_dtype,
+              suffix_buckets=target.suffix_buckets)
+    if mesh is None:
+        return CompletionModel(dcfg, module=_layer_view(mod, draft_layers),
+                               device=target.device, **kw)
+    from ..parallel.serve import ShardedCompletionModel, ShardedDecoder
+    view = ShardedDecoder(dcfg, [_layer_view(m, draft_layers)
+                                 for m in shards], mesh)
+    return ShardedCompletionModel(dcfg, mesh, module=view, **kw)
 
 
 class SpecPagedCache:

@@ -10,10 +10,13 @@ of the package on a machine with no nvcc.
 
 Launch counts: every wrapper bumps LAUNCHES[name] where it launches
 its kernel and nowhere else, so a run can show that its main path went
-through the kernels (chip_smoke.py resets and reads them).
+through the kernels (chip_smoke.py resets and reads them).  A sharded
+path names the shard it is computing (LAUNCHES.shard, per thread) and
+its launches are also counted per (kernel, shard) in LAUNCHES.by_shard.
 """
 from __future__ import annotations
 
+import collections
 import ctypes as C
 import os
 import shutil
@@ -77,17 +80,33 @@ _SIGNATURES = {
 
 
 class LaunchCounts(dict):
-    """Kernel name -> launches since the last reset()."""
+    """Kernel name -> launches since the last reset(); by_shard counts
+    the launches made while a thread names its shard."""
 
     def __init__(self):
         super().__init__(dict.fromkeys(SOURCES, 0))
+        self.by_shard: collections.Counter = collections.Counter()
+        self._tag = threading.local()
+
+    @property
+    def shard(self):
+        """The shard this thread is computing for, or None."""
+        return getattr(self._tag, "shard", None)
+
+    @shard.setter
+    def shard(self, slot) -> None:
+        self._tag.shard = slot
 
     def bump(self, name: str) -> None:
         self[name] += 1
+        slot = self.shard
+        if slot is not None:
+            self.by_shard[name, slot] += 1
 
     def reset(self) -> None:
         for name in self:
             self[name] = 0
+        self.by_shard.clear()
 
     def heartbeat_fields(self) -> dict:
         """The counts as heartbeat fields, kernel_<name>."""

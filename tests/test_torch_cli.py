@@ -3,11 +3,12 @@ through its real entry point on the CPU: the port's counterparts of the
 JAX package's tests/test_cli.py (init/set/get/head/list/type/unset/
 config/export/bump/append/uuid/math/label/shard/watch/search, the
 port's Embedder with the fake encoder, `search --cpu` where the JAX
-package's test let its CPU default score), then what only the port has:
-`search --sharded` and `lint` refuse with their pointers, a local-path
-search without --cpu refuses on a host without CUDA, the commands that
-score nothing run with torch unimportable, the stale-scratch growth on
-the search daemon's path, and the REPL's second local search staging
+package's test let its CPU default score; `search --sharded --cpu` on
+the pod path, its fetch growing past stale scratch rows), then what only
+the port has: `lint` refuses with its pointer, a local-path search and a
+sharded one without --cpu refuse on a host without CUDA, the commands
+that score nothing run with torch unimportable, the stale-scratch growth
+on the search daemon's path, and the REPL's second local search staging
 only the dirty rows."""
 import json
 import os
@@ -342,18 +343,71 @@ def test_search_degrades_without_daemon(cli, capsys):
     assert all(r["similarity"] is None for r in rows)
 
 
-def test_sharded_search_refused_with_roadmap_pointer(cli, capsys):
-    """The pod path waits for the multi-GPU slice: --sharded exits 1,
-    names the ROADMAP item and leaves no scratch key behind."""
+def test_sharded_search_served(cli, capsys):
+    """search --sharded serves the pod path (PodSearch over a CPU mesh
+    with --cpu): host-tagged rows ranked as the committed vectors rank
+    against the query's, its own scratch row masked out and retired."""
     run, name = cli
     st = Store.open(name)
     _docs(st)
     with _Daemons(st):
-        rc = run("search", "--sharded", "--json", "document number 3")
-    err = capsys.readouterr().err
-    assert rc == 1
-    assert "ROADMAP.md Queue A item 5" in err and "--sharded" in err
+        rc = run("search", "--sharded", "--cpu", "--json", "--limit", "3",
+                 "--timeout", "60000", "document number 3")
+        rows = json.loads(out_of(capsys))
+    assert rc == 0 and len(rows) == 3
+    q = st.vec_get("doc3")                  # same text -> same fake vec
+    sims = {f"doc{i}": float(st.vec_get(f"doc{i}") @ q
+                             / np.linalg.norm(st.vec_get(f"doc{i}"))
+                             / np.linalg.norm(q)) for i in range(8)}
+    want = sorted(sims, key=lambda k: -sims[k])[:3]
+    assert [r["key"] for r in rows] == want and want[0] == "doc3"
+    for r in rows:
+        assert r["host"] == 0 and r["slot"] == st.find_index(r["key"])
+        assert r["similarity"] == pytest.approx(sims[r["key"]], abs=1e-5)
     assert not any(k.startswith(P.SEARCH_SCRATCH_PREFIX) for k in st.list())
+    st.close()
+
+
+def test_sharded_search_without_cuda_refuses(cli, capsys):
+    """Without --cpu the pod path's mesh is the host's cards: a host
+    without CUDA exits 1 naming --cpu and leaves no scratch key."""
+    if torch.cuda.is_available():
+        pytest.skip("holds the refusal of a host without CUDA")
+    run, name = cli
+    st = Store.open(name)
+    _docs(st)
+    with _Daemons(st):
+        rc = run("search", "--sharded", "--json", "--timeout", "60000",
+                 "document number 3")
+    cap = capsys.readouterr()
+    assert rc == 1 and "--sharded --cpu" in cap.err
+    assert not any(k.startswith(P.SEARCH_SCRATCH_PREFIX) for k in st.list())
+    st.close()
+
+
+def test_sharded_search_grows_past_stale_scratch(cli, capsys):
+    """The counterpart of tests/test_cli.py:271: stale __sqtmp_ scratch
+    rows hold QUERY embeddings, so they rank at the very top of a
+    repeated query; the pod path grows its fetch on the _bucket
+    schedule until --limit real results come back."""
+    run, name = cli
+    st = Store.open(name)
+    query = "document number 3"
+    _docs(st)
+    for i in range(5):
+        k = f"{P.SEARCH_SCRATCH_PREFIX}{40000 + i}"
+        st.set(k, query)
+        st.label_or(k, P.LBL_EMBED_REQ)
+    with _Daemons(st):
+        # limit 8 = all real docs; the first fetch (8 + 4) is swamped by
+        # the 5 stale scratch rows and must grow
+        rc = run("search", "--sharded", "--cpu", "--json", "--limit", "8",
+                 "--timeout", "60000", query)
+        assert rc == 0
+        rows = json.loads(out_of(capsys))
+    assert len(rows) == 8
+    assert {r["key"] for r in rows} == {f"doc{i}" for i in range(8)}
+    assert rows[0]["key"] == "doc3"
     st.close()
 
 

@@ -51,7 +51,9 @@ MASKS = (
     ("slot times", r"(ctime|atime)(\"?:?\s+)\d+", r"\1\2<t>"),
     ("pid", r"(pid|owner)(\s+)\d+", r"\1\2<pid>"),
     ("heartbeat age", r"\d+\.\ds ago", "<age> ago"),
-    ("bid claim time", r"(?m) \d+(  (yes|no))$", r" <t>\1"),
+    # `shard table` prints claimed_at left-aligned in 12 columns, so
+    # the gap before yes/no depends on the clock's digit count
+    ("bid claim time", r"(?m) \d+ +(yes|no)$", r" <t>  \1"),
 )
 
 # lines the port changes on purpose

@@ -261,17 +261,41 @@ def test_main_serves_on_the_cpu(st, monkeypatch):
         tcomp.main(["--store", st.name, "--oneshot"])
 
 
-# explicit ids: each case keeps the id it had while the list also held
-# the flags served now — the KV tier (flags0, flags1), the disaggregated
+# explicit ids: each case keeps the id it had in the list of flags the
+# port once refused — the KV tier (flags0, flags1), the disaggregated
 # lanes (flags2, flags3, flags11), speculative decoding (flags6, flags7,
-# flags13, flags14), int8 weights (flags8-flags10) and a .gguf (flags12)
-@pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--ep", "2"],
+# flags13, flags14), int8 weights (flags8-flags10), a .gguf (flags12) and
+# sharded serving (flags4, flags5), all served now
+@pytest.mark.parametrize("flags,tp,ep", [
+    (["--tp", "2"], 2, 1), (["--ep", "2"], 1, 2),
 ], ids=[f"flags{i}" for i in (4, 5)])
-def test_flags_not_yet_ported_exit_nonzero(flags):
+def test_sharded_flags_serve_on_the_cpu(st, monkeypatch, flags, tp, ep):
+    """--tp / --ep build a mesh of CPU shards with --device cpu and serve
+    through a ShardedCompletionModel; on a CUDA host with fewer cards
+    than tp * ep the daemon exits nonzero naming the card count, never
+    falling back to a CPU lane or to tp = 1."""
+    from libsplinter_tpu_torch.parallel import ShardedCompletionModel
+    seen = []
+    run_once = tcomp.Completer.run_once
+
+    def recording(self):
+        seen.append(self._model)
+        return run_once(self)
+
+    monkeypatch.setattr(tcomp.Completer, "run_once", recording)
+    _request(st, "q", "hello")
+    assert tcomp.main(["--store", st.name, "--device", "cpu", "--oneshot",
+                       "--n-ctx", "256", "--max-new-tokens", "3",
+                       *flags]) == 0
+    assert _served(st, "q") and st.get("q").startswith(b"hello")
+    model, = seen
+    assert isinstance(model, ShardedCompletionModel)
+    assert (model.mesh.shape["tp"], model.mesh.shape["ep"]) == (tp, ep)
+    assert all(d.type == "cpu" for d in model.module.devices)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit) as exc:
-        tcomp.main(["--store", "/spt-never-opened", "--device", "cpu",
-                    *flags])
+        tcomp.main(["--store", "/spt-never-opened", *flags])
     msg = str(exc.value.code)
-    assert exc.value.code not in (0, None) and "not yet ported" in msg
-    assert "ROADMAP" in msg
+    assert exc.value.code not in (0, None)
+    assert "needs 2 cuda devices" in msg and "this host has 1" in msg

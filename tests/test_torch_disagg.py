@@ -11,9 +11,10 @@ backpressure, and the two lanes' reclaim staying on their own side of
 the DECODE_READY flip.  Then one cross-package handoff: the JAX
 package's PrefillLane hands rows to the port's DecodeLane over one
 store, the adopted rows' first decode logits within 1e-4 of the port's
-own prefill (f32), which shows the two wire formats are one.  The
-tensor-parallel case waits for the multi-GPU item of ROADMAP.md's Queue
-A; the supervised crash drills (prefill handoff, decode adopt) run both
+own prefill (f32), which shows the two wire formats are one.  At tp = 2
+(parallel/serve.py on two CPU shards) the split lanes hand pages over the
+sharded wire: split equals unified, and a wire page carries the tp = 1
+page's bytes.  The supervised crash drills (prefill handoff, decode adopt) run both
 lanes' entry points under the port's supervisor in
 tests/test_torch_supervised_drills.py."""
 import os
@@ -152,6 +153,74 @@ def test_split_matches_unified_with_midburst_joiner(model, kv_dtype):
         c8 = model.init_paged(2, page=8, kv_dtype="int8")
         assert str(model._page_wire_dtype(c4)) == "uint8"
         assert model.page_wire_bytes(c4) * 2 == model.page_wire_bytes(c8)
+
+
+@pytest.fixture(scope="module")
+def sharded_model(model):
+    """The fixture's weights at tp = 2 over two CPU shards."""
+    from libsplinter_tpu_torch.parallel import (ShardedCompletionModel,
+                                                make_mesh)
+    return ShardedCompletionModel(
+        model.cfg, make_mesh(tp=2, device="cpu"),
+        params=model.module.state_dict(), buckets=(32,), temp=0.0, seed=1,
+        suffix_buckets=(8,))
+
+
+def test_split_matches_unified_tp2(model, sharded_model):
+    """The page handoff across a tp = 2 mesh: exported wire pages gather
+    the kv-head-sharded pools in head order, adoption scatters them back
+    per shard, and greedy bytes through the split equal the unified
+    sharded lane's and the tp = 1 lane's (f32)."""
+    unified, split = _lanes()
+    uni, _ = _serve("uni-tp2", unified, sharded_model, PROMPTS)
+    spl, stats = _serve("spl-tp2", split, sharded_model, PROMPTS)
+    one, _ = _serve("uni-tp1", unified, model, PROMPTS)
+    assert spl == uni == one
+    pf, dl = stats
+    assert pf["handoffs"] >= 3 and pf["handoff_failed"] == 0
+    assert dl["adopted"] == pf["handoffs"]
+    assert dl["handoff_refill"] == 0          # the wire, not the fallback
+    assert pf["handoff_wire_mb"] > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "int4"],
+                         ids=["f32", "int8", "int4"])
+def test_tp2_wire_pages_equal_tp1(model, sharded_model, kv_dtype):
+    """A row prefilled at tp = 2 exports wire pages of the tp = 1 size
+    and layout: layer 0's K/V (computed from the same embeddings) byte
+    for byte, the deeper layers within f32 rounding of the partial sums
+    (1e-5; quantized pools compare their scales), and a tp = 2 pool
+    adopting tp = 1 pages decodes the same tokens as tp = 1 does."""
+    prompt = np.array([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5], np.int32)
+    wires, toks = [], []
+    for m in (model, sharded_model):
+        cache = m.init_paged(2, page=8, kv_dtype=kv_dtype)
+        m.paged_prefill_row(cache, prompt, 0)
+        wires.append(m.export_row_pages(cache, 0))
+        assert m.page_wire_bytes(cache) == len(wires[-1][0][0])
+    (p1, s1), (p2, s2) = wires
+    assert [len(b) for b in p1] == [len(b) for b in p2]
+    layers = model.cfg.layers
+    for a, b in zip(p1, p2):
+        n0 = len(a) // (2 * layers)        # one layer of one side
+        assert a[:n0] == b[:n0]            # k, layer 0
+        assert a[layers * n0:(layers + 1) * n0] == \
+            b[layers * n0:(layers + 1) * n0]   # v, layer 0
+        if kv_dtype is None:
+            np.testing.assert_allclose(np.frombuffer(a, np.float32),
+                                       np.frombuffer(b, np.float32),
+                                       rtol=1e-5, atol=1e-5)
+    for a, b in zip(s1, s2):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_allclose(np.frombuffer(a, np.float32),
+                                       np.frombuffer(b, np.float32),
+                                       rtol=1e-5, atol=1e-7)
+    for m in (model, sharded_model):
+        cache = m.init_paged(2, page=8, kv_dtype=kv_dtype)
+        assert m.paged_adopt_row(cache, 1, len(prompt), *wires[0])
+        toks.append(m.paged_decode_chunk(cache, np.array([0, 7]), 4)[1])
+    np.testing.assert_array_equal(toks[0], toks[1])
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int4"], ids=["f32", "int4"])

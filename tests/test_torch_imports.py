@@ -131,7 +131,7 @@ def test_store_copy_differs_only_in_list():
 def _search_lines(path):
     """cli/search.py's text without the parts the port owns: the module
     docstring, the command's help text, the body of the --sharded
-    branch, `_local_search`, `_bucket` and the line importing it."""
+    branch and `_local_search`."""
     text = path.read_text()
     tree = ast.parse(text)
     lines = text.splitlines()
@@ -139,7 +139,7 @@ def _search_lines(path):
     for fn in tree.body:
         if not isinstance(fn, ast.FunctionDef):
             continue
-        if fn.name in ("_local_search", "_bucket"):
+        if fn.name == "_local_search":
             cut |= set(range(fn.lineno - 1, fn.end_lineno))
         for deco in fn.decorator_list:
             cut |= set(range(deco.lineno - 1, deco.end_lineno))
@@ -147,8 +147,7 @@ def _search_lines(path):
             if isinstance(node, ast.If) and "sharded" in \
                     ast.unparse(node.test):
                 cut |= set(range(node.lineno, node.body[-1].end_lineno))
-    kept = [ln for i, ln in enumerate(lines) if i not in cut
-            and "sharded_search import _bucket" not in ln]
+    kept = [ln for i, ln in enumerate(lines) if i not in cut]
     while kept and not kept[-1].strip():
         kept.pop()
     return kept
@@ -156,16 +155,16 @@ def _search_lines(path):
 
 def test_search_copy_differs_only_in_local_path():
     """cli/search.py follows the JAX package's line by line except in
-    `_local_search` (the port's K3 on the session lane's device), the
-    --sharded branch (a refusal until the multi-GPU slice) and
-    `_bucket`, which the port keeps in the module (the JAX package
-    imports it from parallel/sharded_search.py, which the port lacks) —
-    and in the docstring and help text that say so."""
+    `_local_search` (the port's K3 on the session lane's device) and the
+    body of the --sharded branch (PodSearch on the port's mesh: no
+    backend query, the kernels' plain versions only with --cpu) — and
+    in the docstring and help text that say so.  Both import `_bucket`
+    from parallel/sharded_search.py, whose copy is the JAX package's."""
     import inspect
 
     from libsplinter_tpu.parallel import sharded_search as ref
 
-    from libsplinter_tpu_torch.cli import search as port
+    from libsplinter_tpu_torch.parallel import sharded_search as port
     assert _search_lines(PORT / "cli" / "search.py") == \
         _search_lines(ROOT / "libsplinter_tpu" / "cli" / "search.py")
     assert inspect.getsource(port._bucket) == inspect.getsource(ref._bucket)

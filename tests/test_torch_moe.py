@@ -15,8 +15,11 @@ down_experts} leaf by leaf):
   - int8 experts (quantized=True): the state_dict quantizer's expert
     leaves equal the JAX walker's, logits within 1e-5 of the JAX
     quantized MoE, resident expert bytes 0.5625 x bf16;
-  - a mesh is refused with a ROADMAP pointer, and the completer serves
-    a MoE model on the continuous lane."""
+  - expert parallelism at ep = 2 x tp = 2 on four CPU shards: the
+    experts split on ep, greedy tokens (dense and paged lanes, float
+    and int8 experts) equal the unmeshed model's, and an expert count
+    the ep axis does not divide is refused with the JAX package's text;
+    the completer serves a MoE model on the continuous lane."""
 import os
 import threading
 import time
@@ -213,10 +216,50 @@ def test_expert_quantization_and_resident_bytes():
     assert held / (qcfg.layers * 3 * e * h * m * 2) == 0.5625
 
 
-def test_mesh_is_refused_with_a_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        tmoe.moe_completion_model(tmoe.MoeDecoderConfig.tiny(),
-                                  mesh=object(), device="cpu")
+def test_n_experts_must_divide_ep():
+    """The counterpart of tests/test_moe.py's refusal: the expert axis
+    must split evenly over ep (no padding experts)."""
+    from libsplinter_tpu_torch.parallel import make_mesh
+    cfg = tmoe.MoeDecoderConfig.tiny(dtype=torch.float32, n_experts=3)
+    mesh = make_mesh(dp=2, tp=2, ep=2, device="cpu")
+    with pytest.raises(ValueError, match="n_experts=3 must divide"):
+        tmoe.moe_completion_model(cfg, mesh)
+    with pytest.raises(ValueError, match="n_experts=3 must divide"):
+        tmoe.MoeDecoder(cfg, mesh)
+
+
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["float", "int8-experts"])
+def test_expert_parallel_generation_identical(quantized):
+    """ep = 2 x tp = 2 sharded MoE serving (four CPU shards) generates
+    exactly the unmeshed model's greedy tokens on the dense and the
+    paged lane, the stacked experts split on ep and attention on tp."""
+    from libsplinter_tpu_torch.parallel import make_mesh
+    _, tm, _ = _model_pair(quantized)
+    mesh = make_mesh(tp=2, ep=2, device="cpu")
+    served = tmoe.moe_completion_model(
+        tm.cfg, mesh, params=tm.module.state_dict(), buckets=(16,),
+        temp=0.0)
+    e = tm.cfg.n_experts
+    leaf = "gate_experts_q" if quantized else "gate_experts"
+    for s, shard in enumerate(served.module.shards):
+        moe = shard.layer_0.moe
+        assert getattr(moe, leaf).shape[0] == e // 2
+        assert moe.router.weight.shape[0] == e           # routes over all
+        want = getattr(tm.module.layer_0.moe, leaf)[(s % 2) * e // 2:
+                                                    (s % 2 + 1) * e // 2]
+        assert torch.equal(getattr(moe, leaf), want)
+        assert shard.layer_0.attn.k.out_features * 2 == \
+            tm.module.layer_0.attn.k.out_features
+    want = [int(t) for t in tm.generate_tokens(PROMPT, 10, chunk=5)]
+    tm.reset()
+    got = [int(t) for t in served.generate_tokens(PROMPT, 10, chunk=5)]
+    served.reset()
+    assert got == want
+    cache = served.init_paged(2, page=8)
+    paged = [int(np.argmax(served.paged_prefill_row(cache, PROMPT, 0)))]
+    blk = served.paged_decode_chunk(cache, np.array([paged[0], -1]), 9)
+    assert paged + [int(t) for t in blk[0]] == want
 
 
 def test_completer_serves_a_moe_model_on_the_continuous_lane():

@@ -8,7 +8,9 @@ own target-only greedy lane where they cannot.
     the target's distribution;
   - self_draft_model: the port's draft shares the target's storage
     (data_ptr equal) and its logits lie within 1e-5 of the JAX
-    self-draft's; its refusals;
+    self-draft's; its refusals; the self-draft of a tp = 2 target (two
+    CPU shards) aliases the target's shard modules and its serial and
+    paged greedy spec tokens equal the plain target's;
   - the serial lane's greedy tokens equal the JAX package's serial
     greedy spec tokens and the target-only tokens (f32, tiny);
   - the paged lane over f32 pools equals the port's target-only greedy
@@ -185,6 +187,36 @@ def test_self_draft_of_an_int8_target_and_refusals():
                                buckets=(16,), device="cpu")
     with pytest.raises(ValueError, match="own draft checkpoint"):
         tspec.self_draft_model(moe, 1)
+
+
+def test_self_draft_of_a_tp2_target(target):
+    """A sharded target's self-draft is a ShardedCompletionModel over the
+    same mesh whose shard modules ARE the target's shards' first layers;
+    greedy spec equals plain on the serial lane and, a mid-flight joiner
+    included, on the paged lane (f32), with no page leaked."""
+    from libsplinter_tpu_torch.parallel import (ShardedCompletionModel,
+                                                make_mesh)
+    tp = ShardedCompletionModel(
+        target.cfg, make_mesh(tp=2, device="cpu"),
+        params=target.module.state_dict(), buckets=(16,), temp=0.0, seed=2)
+    draft = tspec.self_draft_model(tp, 1)
+    assert isinstance(draft, ShardedCompletionModel) and draft.mesh is tp.mesh
+    for d, t in zip(draft.module.shards, tp.module.shards):
+        assert d.layer_0 is t.layer_0 and d.lm_head is t.lm_head
+        assert d.layer_0.attn.q.weight.data_ptr() == \
+            t.layer_0.attn.q.weight.data_ptr()
+    spec = tspec.SpeculativeCompletionModel(tp, draft, gamma=3)
+    want = _greedy(tp, PROMPT, 12)
+    assert want == _greedy(target, PROMPT, 12)
+    assert [int(x) for x in spec.generate_tokens(PROMPT, 12)] == want
+    spec.reset()
+    a = np.arange(1, 8, dtype=np.int32)
+    b = np.array([9, 2, 6], np.int32)
+    out_a, out_b, cache = _paged_run(spec, "f32", a, b)
+    assert out_a == _greedy(tp, a, 16) and out_b == _greedy(tp, b, 11)
+    assert len(cache.target.pools) == 2
+    cache.reset()
+    assert cache.used_pages == 0 and cache.draft.used_pages == 0
 
 
 # -- the serial lane -------------------------------------------------------

@@ -13,8 +13,10 @@ after the crash round-trips.  Counterparts:
   - tests/test_crash_recovery.py:144-230 (a crash at each lane site,
     then recovery), :306 (the supervised searcher) and :322 (the
     supervised embedder): test_supervised_{searcher,embedder,completer}
-    _site_recovers; :428 (a crash mid quantized commit):
-    test_supervise_restores_quantized_commit_crash;
+    _site_recovers; :361 (the sharded continuous lane crashed at its
+    first sharded dispatch): test_supervise_restores_sharded_completer
+    _lane, a --tp 2 completer over two CPU shards; :428 (a crash mid
+    quantized commit): test_supervise_restores_quantized_commit_crash;
   - tests/test_pipeliner.py:662 (scripts reclaimed after a crash):
     test_supervised_crash_reclaims_scripts, over all four lanes;
   - tests/test_kv_tier.py:608,633,659 (mid-spill, mid-readmit,
@@ -112,11 +114,12 @@ def _encoder_file(path):
                                          "[MASK]"] + WORDS)
 
 
-def _decoder_file(path):
+def _decoder_file(path, kv_heads=1):
     """A tiny llama GGUF (vocab 300: the specials, the 256 byte pieces
     and control fillers, so text encodes a token per byte; heads of 32,
-    the narrowest K5 serves on the card)."""
-    cfg = tdec.DecoderConfig.tiny(vocab_size=300, heads=2, kv_heads=1)
+    the narrowest K5 serves on the card); kv_heads=2 splits over tp = 2."""
+    cfg = tdec.DecoderConfig.tiny(vocab_size=300, heads=2,
+                                  kv_heads=kv_heads)
     src = tdec.Decoder(cfg)
     tdec.init_params(src, torch.Generator().manual_seed(4))
     top = {"tok_emb.weight": "token_embd.weight",
@@ -164,6 +167,13 @@ def files(tmp_path_factory):
     _encoder_file(enc)
     _decoder_file(dec)
     return enc, dec
+
+
+@pytest.fixture(scope="module")
+def sharded_file(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("tp-files") / "dec-kv2.gguf")
+    _decoder_file(path, kv_heads=2)
+    return path
 
 
 @pytest.fixture
@@ -414,6 +424,35 @@ def test_supervised_completer_site_recovers(cstore, files, site, device,
         _no_aborts(st)
     for key, prompt in (("q", b"ping?"), ("q2", b"again?")):
         assert st.get(key).rstrip(b"\0").startswith(prompt)
+
+
+def test_supervise_restores_sharded_completer_lane(cstore, sharded_file,
+                                                  device, monkeypatch):
+    """The tp = 2 continuous completer (--tp 2: a ShardedCompletionModel
+    over two shards) crashes at its FIRST sharded paged dispatch; the
+    supervisor observes the crash and restarts the lane without the
+    fault, and both the stranded pre-crash request and a post-crash one
+    converge to READY with the prompt kept."""
+    st = cstore
+    _ask(st, "q", "hello sharded pod")
+    args = ["--device", device, "--weights", sharded_file, "--template",
+            "none", "--temp", "0", "--max-new-tokens", "8", "--continuous",
+            "--tp", "2", "--batch-cap", "4", "--page-size", str(PAGE)]
+    with _supervised(st, ("completer",), {"completer": args},
+                     "completer.sharded_dispatch:crash@1", monkeypatch,
+                     stop_after=240.0) as sup:
+        assert _wait(lambda: _ready(st, ["q"]), 180), sup.lanes
+        _lane_ok(sup, "completer")
+        _ask(st, "q2", "again, sharded")
+        assert _wait(lambda: _ready(st, ["q2"]), 120)
+
+        def sharded_beat():
+            hb = json.loads(st.get(P.KEY_COMPLETE_STATS).rstrip(b"\0"))
+            return hb.get("tp") == 2 and set(hb.get("pages_shard", {})) \
+                == {"0", "1"}
+
+        assert _wait(sharded_beat, 30)
+    assert st.get("q2").rstrip(b"\0").startswith(b"again, sharded")
 
 
 @pytest.mark.slow
