@@ -5,8 +5,10 @@ embedder and the completer, the completer's serving variants
 (int8-resident weights, the host-DRAM KV tier, the disaggregated
 prefill/decode lanes), speculative decoding, a Mixtral-family MoE
 checkpoint, the whole serving surface as supervised child processes,
-the operator CLI over it and sharded serving (tensor- and
-expert-parallel decoding, sharded search) on one NVIDIA GPU, with every
+the operator CLI over it, sharded serving (tensor- and
+expert-parallel decoding, sharded search) and multi-GPU training (the
+dp x tp sharded trainer, the ring trainer, the pipeline encoder) on one
+NVIDIA GPU, with every
 CUDA kernel held against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
@@ -207,15 +209,35 @@ Phases (any failure exits non-zero and prints no result line):
      store with an in-process embedder answering, equal to the plain
      version; `completer.main --tp 2` on one card refused, naming the
      count.  Its wall and per-shard launch counts are printed;
- 15. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
+ 15. train_parallel: a prediction line, then on a mesh of four shards
+     (real cards where the host has them, else all on cuda:0): K1 and
+     K6 at one tp = 2 shard's training shape (bf16 B=8 S=512 H=6)
+     against their plain versions, timed by graph replay beside SDPA;
+     make_sharded_train_step at dp = 2 x tp = 2 on EncoderConfig(): one
+     f32 SGD step over 8 pairs x 512 against make_train_step from the
+     same generator (the init identical, loss within 1e-5 relative,
+     gathered gradients within 1e-4 of each tensor's max |g|, every
+     parameter within lr 1e-4 max|g| + 2^-22 max|p|; K1 and K6 96 times),
+     then phase 7's 16 pairs in bf16 with AdamW for 5 timed steps (the
+     loss falls, the dp replicas bit-identical, steps/s and peak memory
+     beside the single-card losses) and one profiled step; make_ring_train_step at dp = 1 x
+     sp = 4 over 4 pairs x 2048 in f32 against the single-card step under
+     the same bounds (the single-card step runs K1/K6 24 times, the ring
+     none), each side's warm step wall and peak memory; pipeline_encode
+     at pp = 4 with 4 microbatches over 16 x 512 in bf16 (cosine >= 0.999
+     to Encoder.forward, K1 48 times; a backward through it runs K6 48
+     times, gradients at cosine >= 0.99) and f32 (embeddings within 1e-5,
+     gradients within 1e-4 of max |g|);
+ 16. launch counts: how often each kernel ran in phases 4 (K1-K3), 5
      and 6 (K4, their sum; each phase's count in the timings line), 6
      (K5, by query tokens and by splits: a launch of more than one
      split runs the combine kernel too), 7 (K6), 8 (K1, K2, K4, K5
      from GGUF weights), 9-11 (K4, K5 on each path), 12 (K1-K5 in
      the supervised children, each process counting from its start)
-     13 (K3 in the CLI's own process, K1-K5 in the children) and 14
-     (K2-K5 on the sharded paths), each counted from 0 just before its
-     path runs, phases 8-14 added to the sums.
+     13 (K3 in the CLI's own process, K1-K5 in the children), 14
+     (K2-K5 on the sharded paths) and 15 (K1, K6 on the training
+     paths), each counted from 0 just before its path runs, phases 8-15
+     added to the sums.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -224,6 +246,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -466,11 +489,11 @@ def phase_build():
               f"{[sorted(tables[n]) for n in TENSOR_CORE]}")
 
 
-def _attn_case(b, s, dtype, seed):
+def _attn_case(b, s, dtype, seed, h=12):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(b, s, 12, 64, generator=g, device="cuda")
+    q, k, v = (torch.randn(b, s, h, 64, generator=g, device="cuda")
                .to(dtype) for _ in range(3))
     lens = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
     lens[-1] = 0                                      # fully-masked row
@@ -5116,6 +5139,476 @@ def phase_sharded(card, timings, tmp, results, lane_path):
         f"{json.dumps(launches)} [{card}]")
     return launches, sums
 
+# -- phase 15: multi-GPU training ---------------------------------------------
+
+# (A) dp = 2 x tp = 2: the f32 parity step over 8 pairs, then phase 7's
+# 16 pairs in bf16 with AdamW for PAR_STEPS timed steps after a warm-up;
+# (B) dp = 1 x sp = 4 over 4 pairs at S = 2048 (chunks of 512) in f32;
+# (C) pp = 4 with 4 microbatches over phase 7's 16 x 512
+PAR_STEPS, PAR_LR = 5, 0.1
+# one tp = 2 shard's attention in the bf16 run: a dp row of 8 pairs at
+# S = 512, 6 of the 12 heads
+SHARD_FLASH = (8, 512, 6)
+
+
+def _flash_shard_rows(results, card):
+    """K1 and K6 at one tp = 2 shard's training shape (bf16, B=8 S=512
+    H=6 D=64, a fully-masked row) against their plain versions, each
+    timed by graph replay beside SDPA's forward and backward (graph
+    replay too: at this size events would time the host)."""
+    import torch
+    import torch.nn.functional as F
+
+    from libsplinter_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain,
+        flash_bwd_cuda, flash_bwd_plain_and_terms, flash_fwd_cuda)
+
+    b, s, h = SHARD_FLASH
+    q, k, v, mask = _attn_case(b, s, torch.bfloat16, seed=151, h=h)
+    maskf = mask.float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    got = flash_attention(q, k, v, mask)
+    ref32 = flash_attention_plain(qf, kf, vf, mask)
+    lim = (BF16_ULP * ref32.abs() + BF16_P_ROUND
+           * flash_attention_plain(qf, kf, vf.abs(), mask) + F32_ATOL)
+    diff = (got.float() - ref32.to(torch.bfloat16).float()).abs()
+    err, worst = diff.max().item(), (diff / lim).max().item()
+    check(worst <= 1.0, f"K1 per shard: max err {err}, {worst:.3f} of "
+          f"its limit")
+    g = torch.Generator(device="cuda").manual_seed(152)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+    o, stats = flash_fwd_cuda(q, k, v, maskf, stats=True)
+    grads = flash_bwd_cuda(q, k, v, o, do, maskf, stats)
+    ref, terms = flash_bwd_plain_and_terms(qf, kf, vf, o.float(),
+                                           do.float(), mask)
+    berr, bworst = 0.0, 0.0
+    for name, gt, rt, term in zip(("dq", "dk", "dv"), grads, ref, terms):
+        f32_tol = F32_ATOL * max(1.0, rt.abs().max().item())
+        bl = BF16_ULP * rt.abs() + BF16_P_ROUND * term + f32_tol
+        bd = (gt.float() - rt.to(torch.bfloat16).float()).abs()
+        berr = max(berr, bd.max().item())
+        bworst = max(bworst, (bd / bl).max().item())
+    check(bworst <= 1.0, f"K6 per shard: max err {berr}, {bworst:.3f} of "
+          f"its limit")
+    del qf, kf, vf, ref32, diff, lim, ref, terms
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot, bias = do.transpose(1, 2).contiguous(), mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        ms = graph_ms(lambda: flash_attention(q, k, v, mask))
+        fwd_lib = graph_ms(sdpa)
+    bms_k6 = graph_ms(lambda: flash_bwd_cuda(q, k, v, o, do, maskf, stats))
+    lib_k6 = graph_ms(sdpa_fwd_bwd) - fwd_lib
+    plain = cuda_ms(lambda: flash_attention_plain(q, k, v, mask), reps=3)
+    plain_k6 = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, do, mask), reps=2)
+    elt = q.element_size()
+    nb = 4 * b * s * h * 64 * elt + b * s * 4
+    k1_bound = bound(nb, 4.0 * b * h * s * s * 64, "bf16")
+    k6_bound = _bwd_bound(q.shape, elt, "bf16")
+    shape = f"B={b} S={s} H={h} D=64 bf16"
+    rows = {"flash_fwd": {"shape": shape, "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain, "library_ms": fwd_lib,
+                          "bound_ms": k1_bound[0],
+                          "bound_by": k1_bound[1]},
+            "flash_bwd": {"shape": shape, "max_abs_err": berr,
+                          "ms": bms_k6, "plain_ms": plain_k6,
+                          "library_ms": lib_k6, "bound_ms": k6_bound[0],
+                          "bound_by": k6_bound[1]}}
+    for name, rec in rows.items():
+        log(f"{'K1' if name == 'flash_fwd' else 'K6'} {name} per shard "
+            f"{shape}, graph replay: kernel {rec['ms']:.4f} ms, sdpa "
+            f"{rec['library_ms']:.4f}, plain {rec['plain_ms']:.3f}, bound "
+            f"{rec['bound_ms']:.4f} ({rec['bound_by']}; "
+            f"{rec['bound_ms'] / rec['ms']:.1%}), err {rec['max_abs_err']:.3g}"
+            f" (worst {worst if name == 'flash_fwd' else bworst:.3f} of the "
+            f"limit) [{card}]")
+        results.setdefault(name, []).append(rec)
+    del q, k, v, o, do, grads, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _grad_err(grads, want):
+    """Worst over tensors of max |g - want| / max |want|, and where."""
+    worst, where = 0.0, ""
+    for name, w in want.items():
+        e = ((grads[name] - w).abs().max() / w.abs().max()).item()
+        if e > worst:
+            worst, where = e, name
+    return worst, where
+
+
+def _param_err(got, want, grads, lr):
+    """Worst over tensors of max |p - want| over its limit: one SGD step
+    moves p by -lr g, so a gradient within 1e-4 of max |g| moves it by
+    at most lr 1e-4 max |g|, plus two f32 roundings of p (2^-23 |p|
+    each)."""
+    worst, where = 0.0, ""
+    for name, w in want.items():
+        lim = (lr * 1e-4 * grads[name].abs().max()
+               + 2.0 ** -22 * w.abs().max()).item()
+        e = (got[name] - w).abs().max().item() / lim
+        if e > worst:
+            worst, where = e, name
+    return worst, where
+
+
+def _to_host(tensors: dict) -> dict:
+    """Copies on the host: the references of a parity check stay out of
+    the other trainer's peak device memory."""
+    import torch
+
+    return {k: v.detach().to("cpu", torch.float32, copy=True)
+            for k, v in tensors.items()}
+
+
+def _init_and_step(sharded_init):
+    """make_sharded_train_step's sharded_init(generator, ids, mask) ->
+    (state, step) as the (init_fn, step_fn) pair the other trainers
+    return."""
+    step_of = {}
+
+    def init_fn(generator, ids, mask):
+        state, step_of["step"] = sharded_init(generator, ids, mask)
+        return state
+
+    return init_fn, lambda state, batch: step_of["step"](state, batch)
+
+
+def _one_step_parity(card, what, single, sharded, batch, counts_want,
+                     held):
+    """One SGD step of `single` (make_train_step's (init, step)) and of
+    `sharded` ((init, step) of a mesh trainer) from the same generator:
+    the init identical, the losses within 1e-5 relative, the gathered
+    gradients within 1e-4 of each tensor's max |g| (phase 7's bound;
+    TF32 off), every parameter after the step within _param_err's
+    limit (compared on the host).  Each trainer's second step on the
+    same batch gives its warm wall and peak allocated memory (its own
+    state alone on the card; `held`, what earlier phases still hold,
+    subtracted).  Returns (sharded launches of the
+    counted step, readings)."""
+    import torch
+
+    from libsplinter_tpu_torch.ops import _cuda
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    out, launches = {}, {}
+    sample = (batch["ids_a"][:1], batch["mask_a"][:1])
+    for side, (init, step) in (("single", single), ("sharded", sharded)):
+        state = init(gen(), *sample)
+        if side == "single":
+            start = _to_host(state.module.state_dict())
+        else:
+            full = _to_host(state.module.full_state_dict())
+            check(all(torch.equal(full[k], v) for k, v in start.items()),
+                  f"{what}: the sharded init differs from the single-card "
+                  "init of the same generator")
+            del full
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()                   # this path, from 0
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        launches[side] = {k: _cuda.LAUNCHES[k] for k in ("flash_fwd",
+                                                         "flash_bwd")}
+        if side == "single":
+            grads = _to_host({n: p.grad for n, p in
+                              state.module.named_parameters()})
+            params = _to_host(state.module.state_dict())
+        else:
+            m = state.module
+            sg = _to_host({n: m.gather(n, [m.shards[m.slot(0, t, 0)]
+                                           .get_parameter(n).grad
+                                           for t in range(m.tp)])
+                           for n, _ in m.shards[0].named_parameters()})
+            sp = _to_host(m.full_state_dict())
+            del m
+        out[f"{side}_loss"] = float(loss)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)            # warm wall, peak
+        torch.cuda.synchronize()
+        out[f"{side}_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{side}_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                  - held) / 1e9
+        if side == "sharded":
+            mismatch = state.module.replica_mismatches()
+        del state
+        torch.cuda.empty_cache()
+    rel = abs(out["sharded_loss"] - out["single_loss"]) / abs(
+        out["single_loss"])
+    gerr, gwhere = _grad_err(sg, grads)
+    perr, pwhere = _param_err(sp, params, grads, PAR_LR)
+    check(rel <= 1e-5, f"{what}: loss {out['sharded_loss']} vs single "
+          f"{out['single_loss']} (relative {rel:.3g} > 1e-5)")
+    check(gerr <= 1e-4, f"{what}: gradient {gwhere} off by {gerr:.3g} of "
+          f"its max |g| (> 1e-4)")
+    check(perr <= 1.0, f"{what}: parameter {pwhere} at {perr:.3f} of its "
+          f"limit after the step")
+    check(mismatch == [], f"{what}: replicas differ in {mismatch}")
+    check(launches == counts_want, f"{what}: launches {launches}, want "
+          f"{counts_want}")
+    out.update(loss_rel=rel, grad_err=gerr, grad_worst=gwhere,
+               param_err=perr, param_worst=pwhere, launches=launches)
+    log(f"{what}: one SGD step (lr {PAR_LR}) loss {out['sharded_loss']:.9g}"
+        f" vs single-card {out['single_loss']:.9g} (relative {rel:.3g}, "
+        f"limit 1e-5); gradients within {gerr:.3g} of each tensor's max "
+        f"|g| (worst {gwhere}; limit 1e-4); parameters at {perr:.3f} of "
+        f"lr 1e-4 max|g| + 2^-22 max|p| (worst {pwhere}); replicas "
+        f"identical; launches {launches}; warm step {out['sharded_step_ms']:.1f}"
+        f" ms vs {out['single_step_ms']:.1f}, peak {out['sharded_peak_gb']:.2f}"
+        f" GB vs {out['single_peak_gb']:.2f} allocated above the earlier "
+        f"phases' [{card}]")
+    return launches["sharded"], out
+
+
+def _train_sharded_bf16(card, cfg, mesh, batch, out, held):
+    """make_sharded_train_step in bf16 with AdamW over phase 7's batch:
+    a warm-up step, PAR_STEPS timed steps (the loss falls, the replicas
+    stay bit-identical, K1 and K6 2 x layers x 4 shards a step), one
+    profiled step split by kernel class, beside the single-card
+    trainer's losses on the same init and batch."""
+    import torch
+
+    from libsplinter_tpu_torch.ops import _cuda
+    from libsplinter_tpu_torch.parallel import (make_sharded_train_step,
+                                                make_train_step)
+
+    per_step = 2 * cfg.layers * mesh.size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, step = make_sharded_train_step(cfg, mesh)(
+        gen, batch["ids_a"], batch["mask_a"])
+    state, loss = step(state, batch)                     # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.reset()                               # the main path
+    t0 = time.perf_counter()
+    for _ in range(PAR_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: _cuda.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd")}
+    shards = _by_shard()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    losses = [float(x) for x in losses]
+    mismatch = state.module.replica_mismatches()
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+        return 1
+
+    profile = _profile_drain(one_step, 1, wall / PAR_STEPS, card)
+    del state
+    torch.cuda.empty_cache()
+    check(counts == {"flash_fwd": per_step * PAR_STEPS,
+                     "flash_bwd": per_step * PAR_STEPS},
+          f"sharded bf16: K1/K6 launches {counts} over {PAR_STEPS} steps")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"sharded bf16: losses {losses}")
+    check(mismatch == [], f"sharded bf16: replicas differ in {mismatch}")
+    init1, step1 = make_train_step(cfg)
+    s1 = init1(torch.Generator(device="cuda").manual_seed(0),
+               batch["ids_a"], batch["mask_a"])
+    single = []
+    for _ in range(PAR_STEPS + 1):
+        s1, l1 = step1(s1, batch)
+        single.append(float(l1))
+    del s1
+    torch.cuda.empty_cache()
+    out["bf16"] = {"steps_per_s": PAR_STEPS / wall,
+                   "step_ms": wall / PAR_STEPS * 1e3, "peak_gb": peak,
+                   "losses": losses, "single_losses": single,
+                   "launches": counts, "by_shard": shards,
+                   "profile": profile}
+    log(f"sharded bf16 AdamW dp=2 x tp=2, {TRAIN_B} pairs x S={TRAIN_S}: "
+        f"{PAR_STEPS} steps in {wall:.3f}s = {PAR_STEPS / wall:.3f} steps/s "
+        f"({wall / PAR_STEPS * 1e3:.1f} ms a step), peak {peak:.2f} GB "
+        f"allocated; losses {[round(x, 6) for x in losses]} (single-card "
+        f"on the same init {[round(x, 6) for x in single]}; bf16 partial "
+        f"sums round apart: no claim); replicas bit-identical; K1/K6 "
+        f"{counts} ({per_step} a step), K1 by shard {shards} [{card}]")
+    return counts
+
+
+def _pipeline_check(card, cfg, mesh, batch, out):
+    """pipeline_encode at pp = 4 with 4 microbatches on the full-width
+    encoder: bf16 embeddings against Encoder.forward on the same weights
+    (cosine >= 0.999 per row; the worst error printed: bf16 GEMMs over
+    a smaller M may take other algorithms), K1 12 x 4 times; a bf16
+    backward (K6 12 x 4 times) with every gradient at cosine >= 0.99 to
+    the dense model's; in f32 the embeddings within 1e-5 and the
+    gradients within 1e-4 of each tensor's max |g|."""
+    import torch
+
+    from libsplinter_tpu_torch.models.encoder import Encoder, init_params
+    from libsplinter_tpu_torch.ops import _cuda
+    from libsplinter_tpu_torch.parallel import pipeline_encode
+
+    m = 4
+    want = cfg.layers * m
+    ids = torch.from_numpy(batch["ids_a"]).cuda()
+    mask = torch.from_numpy(batch["mask_a"]).cuda()
+    counts = dict.fromkeys(("flash_fwd", "flash_bwd"), 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        with torch.device("cuda"):
+            dense = Encoder(c)
+        init_params(dense, torch.Generator(device="cuda").manual_seed(0))
+        w = torch.randn((ids.shape[0], c.out_dim), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1))
+        zd = dense(ids, mask)
+        (zd * w).sum().backward()
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in dense.named_parameters()}
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()                           # the main path
+        t0 = time.perf_counter()
+        zp = pipeline_encode(c, mesh, leaves, ids, mask, microbatches=m)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        k1 = _cuda.LAUNCHES["flash_fwd"]
+        (zp * w).sum().backward()
+        torch.cuda.synchronize()
+        k6 = _cuda.LAUNCHES["flash_bwd"]
+        check(k1 == want and k6 == want, f"pipeline {c.dtype}: K1 {k1} / "
+              f"K6 {k6} launches, want {want} each")
+        counts["flash_fwd"] += k1
+        counts["flash_bwd"] += k6
+        err = (zp - zd).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(zp, zd, dim=-1).min() \
+            .item()
+        grads = {n: p.grad for n, p in dense.named_parameters()}
+        got = {n: leaves[n].grad for n in grads}
+        if dtype == torch.bfloat16:
+            gcos = min(torch.nn.functional.cosine_similarity(
+                got[n].flatten(), grads[n].flatten(), dim=0).item()
+                for n in grads)
+            check(cos >= 0.999 and gcos >= 0.99,
+                  f"pipeline bf16: embedding cosine {cos}, worst gradient "
+                  f"cosine {gcos}")
+            rec = {"max_abs_err": err, "min_cosine": cos,
+                   "grad_min_cosine": gcos}
+            limits = "cosine limits 0.999 / 0.99"
+        else:
+            gerr, gwhere = _grad_err(got, grads)
+            check(err <= F32_ATOL and gerr <= 1e-4,
+                  f"pipeline f32: embeddings off by {err}, gradient "
+                  f"{gwhere} by {gerr:.3g} of its max |g|")
+            rec = {"max_abs_err": err, "grad_err": gerr,
+                   "grad_worst": gwhere}
+            limits = "limits 1e-5 / 1e-4 of max |g|"
+        rec.update(fwd_s=fwd_s, k1=k1, k6=k6)
+        out[f"pipeline_{'bf16' if dtype == torch.bfloat16 else 'f32'}"] = \
+            rec
+        log(f"pipeline pp=4, {m} microbatches, {ids.shape[0]} x "
+            f"{ids.shape[1]} {c.dtype}: embeddings vs Encoder.forward max "
+            f"err {err:.3g}, min cosine {cos:.7f}; gradients "
+            f"{json.dumps({k: v for k, v in rec.items() if 'grad' in k})} "
+            f"({limits}); K1 {k1}, K6 {k6} launches; forward "
+            f"{fwd_s * 1e3:.1f} ms (cold) [{card}]")
+        del dense, leaves, zd, zp, grads, got
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_parallel(card, timings, results):
+    """Multi-GPU training on the card's virtual mesh: K1/K6 at the
+    per-shard shape, the dp x tp sharded trainer (f32 parity with the
+    single-card step, then bf16 AdamW), the ring trainer at dp x sp
+    (f32 parity at S = 2048) and the pipeline encoder at pp = 4.
+    Returns the launches of K1 and K6 on its paths, each counted from 0
+    just before the path runs."""
+    import torch
+
+    from libsplinter_tpu_torch.models import EncoderConfig
+    from libsplinter_tpu_torch.parallel import (make_ring_train_step,
+                                                make_sharded_train_step,
+                                                make_train_step)
+
+    t0 = time.perf_counter()
+    # the peaks below count this phase's tensors alone: what earlier
+    # phases still hold (their cyclic garbage collected first) is
+    # subtracted
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log("train_parallel prediction (PERF.md section 6): K1 per shard "
+        "0.025-0.045 ms, K6 0.06-0.10 ms by graph replay; f32 sharded and "
+        "ring steps within 1e-5 relative of the single-card loss and 1e-4 "
+        "of max |g|; bf16 dp=2 x tp=2 at 0.25-0.4x phase 7's steps/s, "
+        "peak 20-30 GB; the ring step 2-3x the single-card f32 step at "
+        "S=2048, its peak 4-8 GB above; the pipeline's bf16 embeddings at "
+        f"cosine >= 0.999; the phase 40-90 s [{card}]")
+    _flash_shard_rows(results, card)
+    out: dict = {}
+    counts = dict.fromkeys(("flash_fwd", "flash_bwd"), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    cfg = EncoderConfig()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rng = np.random.default_rng(23)                  # phase 7's batch
+    batch = _train_batch(rng, cfg.vocab_size, TRAIN_B, TRAIN_S, 128)
+
+    def sgd(p):
+        return torch.optim.SGD(p, lr=PAR_LR)
+
+    # (A) dp = 2 x tp = 2
+    mesh, how = _shard_mesh(dp=2, tp=2)
+    log(f"train_parallel: mesh {mesh.shape} ({how}); earlier phases hold "
+        f"{held / 1e9:.2f} GB, left out of the peaks below [{card}]")
+    per = 2 * cfg.layers
+    half = {k: x[:TRAIN_B // 2] for k, x in batch.items()}
+    c, out["sharded_f32"] = _one_step_parity(
+        card, "sharded f32 dp=2 x tp=2, 8 pairs x S=512",
+        make_train_step(cfg32, sgd),
+        _init_and_step(make_sharded_train_step(cfg32, mesh, sgd)),
+        half, {"single": {"flash_fwd": per, "flash_bwd": per},
+               "sharded": {"flash_fwd": per * 4, "flash_bwd": per * 4}},
+        held)
+    add(c)
+    add(_train_sharded_bf16(card, cfg, mesh, batch, out, held))
+
+    # (B) dp = 1 x sp = 4 at S = 2048
+    ring_mesh, how = _shard_mesh(dp=1, sp=4)
+    long = _train_batch(np.random.default_rng(31), cfg.vocab_size, 4, 2048,
+                        512)
+    c, out["ring_f32"] = _one_step_parity(
+        card, f"ring f32 dp=1 x sp=4 ({how}), 4 pairs x S=2048",
+        make_train_step(cfg32, sgd),
+        make_ring_train_step(dataclasses.replace(cfg32, ring_axis="sp"),
+                             ring_mesh, sgd),
+        long, {"single": {"flash_fwd": per, "flash_bwd": per},
+               "sharded": {"flash_fwd": 0, "flash_bwd": 0}}, held)
+    add(c)
+
+    # (C) pp = 4
+    pipe_mesh, how = _shard_mesh(pp=4)
+    log(f"pipeline: mesh {pipe_mesh.shape} ({how}) [{card}]")
+    add(_pipeline_check(card, cfg, pipe_mesh, batch, out))
+    wall = time.perf_counter() - t0
+    out["wall_s"] = wall
+    timings["train_parallel"] = out
+    log(f"train_parallel phase: {wall:.1f}s; K1/K6 launches on its paths "
+        f"{counts} [{card}]")
+    return counts
+
 
 def _lane_slots(requested: int) -> int:
     """The requested slot count, cut to 262,144 when the temp dir
@@ -5216,6 +5709,12 @@ def main() -> int:
         for k, v in sharded_sums.items():
             counts[k] += v
         timings["sharded_launches"] = sharded
+        # multi-GPU training: K1 and K6 at the per-shard and per-stage
+        # shapes on each path, each counted from 0 just before it runs
+        par = phase_train_parallel(card, timings, results)
+        for k, v in par.items():
+            counts[k] += v
+        timings["train_parallel_launches"] = par
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

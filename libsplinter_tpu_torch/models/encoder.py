@@ -18,6 +18,10 @@ package's flax encoder:
   - ``weights_int8`` keeps the attention and MLP projections on the card
     as per-output-channel int8 codes + f32 scales (models/quant.py).
 
+A config also describes one shard of the multi-GPU trainers
+(parallel/train.py): ``shard(tp)`` gives a tensor-parallel shard's
+geometry, ``ring_axis`` a sequence-parallel chunk's.
+
 Buckets at or above ``flash_min_seq`` attend through kernel K1
 (ops/flash_attention.py); shorter ones through the plain masked
 softmax, as in the JAX package.
@@ -67,6 +71,15 @@ class EncoderConfig:
     # attention and MLP projections keep int8 codes + f32 scales on the
     # card, their biases float
     weights_int8: bool = False
+    # sequence parallelism: the mesh axis a sequence is split over
+    # (conventionally "sp").  A module under such a config computes one
+    # chunk, with ring attention over the others' keys, and is driven
+    # by parallel/train.ShardedEncoder
+    ring_axis: str | None = None
+    # tensor-parallel shards this config describes ONE of (shard()):
+    # heads, mlp_dim and the rows of the token (and bert position)
+    # table are then that shard's; 1 = the model
+    tp: int = 1
 
     @classmethod
     def tiny(cls, **kw) -> "EncoderConfig":
@@ -76,15 +89,44 @@ class EncoderConfig:
         base.update(kw)
         return cls(**base)
 
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // (self.heads * self.tp)
+
+    def shard(self, tp: int) -> "EncoderConfig":
+        """The per-shard geometry of a tensor-parallel shard: heads/tp
+        heads and mlp_dim/tp MLP lanes (the column-parallel outputs and
+        row-parallel inputs it holds) and vocab_size/tp rows of the
+        token table (max_len/tp of bert's position table): the encoder
+        rule splits both tables on tp (parallel/mesh.param_pspec)."""
+        if self.tp != 1:
+            raise ValueError("shard() takes the whole model's config")
+        names = ["heads", "mlp_dim", "vocab_size"]
+        if self.variant == "bert":
+            names.append("max_len")
+        for name in names:
+            if getattr(self, name) % tp:
+                raise ValueError(f"{name}={getattr(self, name)} must "
+                                 f"divide the tp={tp} mesh axis")
+        return dataclasses.replace(self, heads=self.heads // tp,
+                                   mlp_dim=self.mlp_dim // tp, tp=tp)
+
 
 def _rotary_angles(seq_len: int, head_dim: int, device,
                    base: float = 10000.0):
     """Rotary (cos, sin), each (S, head_dim / 2) f32."""
+    return _rotary_angles_at(torch.arange(seq_len, dtype=torch.float32,
+                                          device=device), head_dim, base)
+
+
+def _rotary_angles_at(pos, head_dim: int, base: float = 10000.0):
+    """Rotary (cos, sin) at explicit positions (S,): a sequence-parallel
+    chunk needs its GLOBAL positions (the JAX package's
+    ``_rotary_angles_at``)."""
     half = head_dim // 2
     freqs = 1.0 / (base ** (torch.arange(0, half, dtype=torch.float32,
-                                         device=device) / half))
-    pos = torch.arange(seq_len, dtype=torch.float32, device=device)
-    ang = pos[:, None] * freqs[None, :]
+                                         device=pos.device) / half))
+    ang = pos.float()[:, None] * freqs[None, :]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -146,6 +188,17 @@ class Embed(nn.Embedding):
     def forward(self, ids):
         return F.embedding(ids, self.weight.to(self.dtype))
 
+    def partial(self, ids, index: int):
+        """One tensor-parallel shard's part of the lookup: this table
+        holds rows [index * n, (index + 1) * n) of the whole one; ids
+        outside them give zeros, so the sum over the shards is the
+        whole lookup, exactly (one term of each sum is not zero)."""
+        n = self.num_embeddings
+        local = ids - index * n
+        hit = (local >= 0) & (local < n)
+        rows = self(torch.where(hit, local, 0))
+        return torch.where(hit[..., None], rows, 0.0)
+
 
 def _dense(cfg: EncoderConfig, din: int, dout: int) -> nn.Module:
     """The encoder's projection: Dense, or the per-output-channel int8
@@ -157,30 +210,44 @@ def _dense(cfg: EncoderConfig, din: int, dout: int) -> nn.Module:
 
 
 class SelfAttention(nn.Module):
+    """The attention block; a tensor-parallel shard's (cfg.tp > 1) holds
+    its heads' rows of qkv, [q_t k_t v_t], and its columns of out."""
+
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.qkv = _dense(cfg, cfg.hidden, 3 * cfg.hidden)
-        self.out = _dense(cfg, cfg.hidden, cfg.hidden)
+        width = cfg.heads * cfg.head_dim
+        self.qkv = _dense(cfg, cfg.hidden, 3 * width)
+        self.out = _dense(cfg, width, cfg.hidden)
 
-    def forward(self, x, mask, rotary=None):
+    def project(self, x, rotary=None):
+        """q, k, v as (B, S, heads, head_dim) views of one projection,
+        rotated for the nomic variant."""
         cfg = self.cfg
         b, s, _ = x.shape
-        head_dim = cfg.hidden // cfg.heads
-        q, k, v = self.qkv(x).split(cfg.hidden, dim=-1)
-        q = q.reshape(b, s, cfg.heads, head_dim)
-        k = k.reshape(b, s, cfg.heads, head_dim)
-        v = v.reshape(b, s, cfg.heads, head_dim)
+        q, k, v = self.qkv(x).split(cfg.heads * cfg.head_dim, dim=-1)
+        q = q.reshape(b, s, cfg.heads, cfg.head_dim)
+        k = k.reshape(b, s, cfg.heads, cfg.head_dim)
+        v = v.reshape(b, s, cfg.heads, cfg.head_dim)
         if cfg.variant == "nomic":
             q = _apply_rotary(q, *rotary)
             k = _apply_rotary(k, *rotary)
-        if cfg.flash_min_seq and s >= cfg.flash_min_seq:
-            out = flash_attention(q, k, v, mask)
-        else:
-            # short buckets: the plain masked softmax, shared with the
-            # kernel's CPU path so the attention paths cannot drift
-            out = _mha_plain(q, k, v, mask)
-        return self.out(out.reshape(b, s, cfg.hidden))
+        return q, k, v
+
+    def attend(self, q, k, v, mask):
+        """Attention over the whole (local) sequence: K1 at and above
+        flash_min_seq, the plain masked softmax below it."""
+        cfg = self.cfg
+        if cfg.flash_min_seq and q.shape[1] >= cfg.flash_min_seq:
+            return flash_attention(q, k, v, mask)
+        # short buckets: the plain masked softmax, shared with the
+        # kernel's CPU path so the attention paths cannot drift
+        return _mha_plain(q, k, v, mask)
+
+    def forward(self, x, mask, rotary=None):
+        b, s, _ = x.shape
+        out = self.attend(*self.project(x, rotary), mask)
+        return self.out(out.reshape(b, s, -1))
 
 
 class Mlp(nn.Module):
@@ -192,12 +259,14 @@ class Mlp(nn.Module):
         self.up = _dense(cfg, cfg.hidden, cfg.mlp_dim)
         self.down = _dense(cfg, cfg.mlp_dim, cfg.hidden)
 
-    def forward(self, x):
+    def act(self, x):
+        """The activations `down` reads: silu(gate) * up, or gelu(up)."""
         if self.variant == "nomic":
-            h = F.silu(self.gate(x)) * self.up(x)
-        else:
-            h = F.gelu(self.up(x), approximate="tanh")
-        return self.down(h)
+            return F.silu(self.gate(x)) * self.up(x)
+        return F.gelu(self.up(x), approximate="tanh")
+
+    def forward(self, x):
+        return self.down(self.act(x))
 
 
 class EncoderLayer(nn.Module):
@@ -208,10 +277,18 @@ class EncoderLayer(nn.Module):
         self.mlp = Mlp(cfg)
         self.ln_mlp = LayerNorm(cfg.hidden, cfg.layer_norm_eps)
 
+    # post-LN (BERT family): sublayer -> residual -> LN.  The two steps
+    # take the sublayer's output, so parallel/train.ShardedEncoder runs
+    # them on its tp-reduced sums in the same order
+    def after_attn(self, x, a):
+        return self.ln_attn(x + a)
+
+    def after_mlp(self, x, a):
+        return self.ln_mlp(x + a)
+
     def forward(self, x, mask, rotary=None):
-        # post-LN (BERT family): sublayer -> residual -> LN
-        x = self.ln_attn(x + self.attn(x, mask, rotary))
-        return self.ln_mlp(x + self.mlp(x))
+        x = self.after_attn(x, self.attn(x, mask, rotary))
+        return self.after_mlp(x, self.mlp(x))
 
 
 class Encoder(nn.Module):
@@ -223,9 +300,10 @@ class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.tok_emb = Embed(cfg.vocab_size, cfg.hidden, cfg.dtype)
+        self.tok_emb = Embed(cfg.vocab_size // cfg.tp, cfg.hidden, cfg.dtype)
         if cfg.variant == "bert":
-            self.pos_emb = Embed(cfg.max_len, cfg.hidden, cfg.dtype)
+            self.pos_emb = Embed(cfg.max_len // cfg.tp, cfg.hidden,
+                                 cfg.dtype)
         self.ln_emb = LayerNorm(cfg.hidden, cfg.layer_norm_eps)
         for i in range(cfg.layers):
             self.add_module(f"layer_{i}", EncoderLayer(cfg))
@@ -233,16 +311,26 @@ class Encoder(nn.Module):
     def layer_modules(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
 
+    def embed_norm(self, x, pos_rows=None):
+        """The embedding's end: the (bert) position rows added to the
+        token rows, then ln_emb.  ShardedEncoder passes its tp-reduced
+        lookups."""
+        if pos_rows is not None:
+            x = x + pos_rows[None]
+        return self.ln_emb(x)
+
     def forward(self, token_ids, attn_mask):
         """token_ids: (B, S) int; attn_mask: (B, S) bool.  Returns
         (B, out_dim) f32."""
         cfg = self.cfg
+        if cfg.tp != 1 or cfg.ring_axis:
+            raise ValueError("a shard's encoder (tp > 1 or ring_axis) "
+                             "computes part of the model: drive it through "
+                             "parallel/train.ShardedEncoder")
         s = token_ids.shape[1]
-        x = self.tok_emb(token_ids)
-        if cfg.variant == "bert":
-            pos = torch.arange(s, device=token_ids.device)
-            x = x + self.pos_emb(pos)[None]
-        x = self.ln_emb(x)
+        pos_rows = (self.pos_emb(torch.arange(s, device=token_ids.device))
+                    if cfg.variant == "bert" else None)
+        x = self.embed_norm(self.tok_emb(token_ids), pos_rows)
         rotary = (_rotary_angles(s, cfg.hidden // cfg.heads,
                                  token_ids.device)
                   if cfg.variant == "nomic" else None)
@@ -255,10 +343,21 @@ def pool_normalize(cfg: EncoderConfig, x, attn_mask):
     """The encoder's output head: masked mean pool in f32, matryoshka
     truncation to out_dim, L2 normalize.  x: (..., S, hidden);
     attn_mask: (..., S)."""
+    return pool_finish(cfg, *pool_sums(x, attn_mask))
+
+
+def pool_sums(x, attn_mask):
+    """The pool's f32 sums over the valid tokens and their counts.  A
+    sequence-parallel encoder adds each chunk's before pool_finish
+    divides (the JAX package's psum over the ring axis)."""
     xf = x.float()
     m = attn_mask.float()[..., None]
-    sums = (xf * m).sum(dim=-2)
-    counts = m.sum(dim=-2)
+    return (xf * m).sum(dim=-2), m.sum(dim=-2)
+
+
+def pool_finish(cfg: EncoderConfig, sums, counts):
+    """The mean from the pool's sums and counts, truncated to out_dim
+    and L2-normalized."""
     pooled = sums / torch.clamp(counts, min=1.0)
     pooled = pooled[..., : cfg.out_dim]
     norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)

@@ -21,8 +21,9 @@ TORCH tensor — the mesh axis that dimension splits on, or None — and
 flax's (in, out) kernel: column-parallel projections split dim 0 and
 row-parallel ones dim 1.
 
-The collectives work on lists of per-shard tensors.  Shards on one
-device are summed there; shards on distinct cards reach the first
+The collectives work on lists of per-shard tensors, out of place, so
+serving under no_grad and training under autograd share them.  Shards
+on one device are summed there; shards on distinct cards reach the first
 shard's card by peer copies.  NCCL (``torch.distributed`` or
 ``torch.cuda.nccl``) takes their place once a multi-card cell exists to
 measure it; until then a mesh may repeat a device (the tests' CPU
@@ -239,19 +240,36 @@ def replicated(mesh: Mesh) -> tuple:
 
 def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     """The sum of the shards' partial tensors, taken in shard order on
-    the first shard's device (in place there: the parts are consumed),
-    and the same sum on every shard's device — shards on one device
-    share one result tensor, so every shard reads identical bits."""
+    the first shard's device, and the same sum on every shard's device.
+    Out of place, so autograd goes through it: the backward of the
+    reduction is the broadcast of the gradient, the backward of each
+    copy (``.to``) a copy back.  Shards on one device share one result
+    tensor, so every shard reads identical bits, and what follows must
+    not write into it."""
     acc = parts[0]
     for p in parts[1:]:
-        acc.add_(p.to(acc.device))
+        acc = acc + p.to(acc.device)
     return _broadcast(acc, parts)
+
+
+def all_reduce_groups(parts: list[torch.Tensor], groups
+                      ) -> list[torch.Tensor]:
+    """all_reduce_sum within each group of shard indices (the shards
+    that differ only in their position on the reduced axis); entry k of
+    the result is shard k's sum."""
+    out = [None] * len(parts)
+    for g in groups:
+        for k, r in zip(g, all_reduce_sum([parts[k] for k in g])):
+            out[k] = r
+    return out
 
 
 def all_gather(parts: list[torch.Tensor], dim: int = 0
                ) -> list[torch.Tensor]:
     """The shards' tensors concatenated along `dim` in shard order, on
-    every shard's device."""
+    every shard's device.  Out of place, so autograd goes through it
+    (the backward of the concatenation slices each shard's part
+    back)."""
     dev = parts[0].device
     whole = torch.cat([p.to(dev) for p in parts], dim)
     return _broadcast(whole, parts)

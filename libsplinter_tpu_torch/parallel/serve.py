@@ -24,7 +24,7 @@ Where GSPMD partitions one program, the port runs one shard module per
 (tp, ep) slot of the mesh — a ``Decoder`` built on the per-shard
 geometry (``DecoderConfig.shard``) — and ``ShardedDecoder`` drives them
 layer by layer in lockstep, reducing between the halves of each layer
-(decoder.DecoderLayer.attn / .mlp) with parallel/mesh.all_reduce_sum.
+(decoder.DecoderLayer.attn / .mlp) with parallel/mesh.all_reduce_groups.
 Every shard runs the hand-written kernels at its own shapes: K4 on
 prefill chunks of flash_min_seq and more at heads/tp, K5 over its pool.
 
@@ -45,8 +45,8 @@ from torch import nn
 from ..models.decoder import (CompletionModel, Decoder, init_cache,
                               init_params, quantize_params, seat_module)
 from ..ops._cuda import LAUNCHES
-from .mesh import (Mesh, all_reduce_sum, decoder_param_pspec, make_mesh,
-                   shard_params)
+from .mesh import (Mesh, all_reduce_groups, decoder_param_pspec,
+                   make_mesh, shard_params)
 
 log = logging.getLogger("libsplinter_tpu_torch.serve")
 
@@ -109,13 +109,6 @@ class ShardedDecoder(nn.Module):
             seat_module(m, sd)
         return self.eval().requires_grad_(False)
 
-    def _reduce(self, parts: list, groups) -> list:
-        out = [None] * len(parts)
-        for g in groups:
-            for s, r in zip(g, all_reduce_sum([parts[s] for s in g])):
-                out[s] = r
-        return out
-
     def forward(self, token_ids, cache, pos: int, start=None, *,
                 last: int | None = None, lengths=None, tables=None,
                 n_valid: int | None = None):
@@ -145,10 +138,11 @@ class ShardedDecoder(nn.Module):
                                          lens[s], tabs[s], n_valid))
             finally:
                 LAUNCHES.shard = None
-            xs = [x + r for x, r in zip(xs, self._reduce(parts,
-                                                         self._tp_groups))]
+            xs = [x + r for x, r in zip(
+                xs, all_reduce_groups(parts, self._tp_groups))]
             parts = [ly.mlp(ly.ln_mlp(x)) for ly, x in zip(layers, xs)]
-            xs = [x + r for x, r in zip(xs, self._reduce(parts, mlp_groups))]
+            xs = [x + r for x, r in zip(
+                xs, all_reduce_groups(parts, mlp_groups))]
         head = shards[0]
         x = head.ln_out(xs[0])
         if last is not None:

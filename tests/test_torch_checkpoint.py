@@ -1,14 +1,20 @@
 """Trainer checkpoints of the torch port (parallel/checkpoint.py), after
-the JAX package's single-device checkpoint tests: save -> restore
-resumes training identically, latest_step, a missing path raises, and
-the npz export loads into the JAX package's Encoder.apply; the trained
-parameters also serve through EmbeddingModel (params= or a safetensors
-file).  CPU, the tiny encoder in f32.
+the JAX package's checkpoint tests: save -> restore resumes training
+identically, latest_step, a missing path raises, and the npz export
+loads into the JAX package's Encoder.apply; the trained parameters also
+serve through EmbeddingModel (params= or a safetensors file); a
+single-card checkpoint resumes on the dp x tp sharded trainer and a
+sharded one on the single-card trainer (tests/test_checkpoint.py's
+restore onto the sharded trainer, both ways).  CPU, the tiny encoder in
+f32.
 
 Tolerances: resume is exact (the same arithmetic on the same values:
 losses equal to 1e-6 relative, as the JAX test holds orbax); the JAX
 encoder on the exported npz against the port at atol 1e-5 on the
-unit-norm embeddings (the same math in two frameworks)."""
+unit-norm embeddings (the same math in two frameworks); across the
+single-card / sharded boundary the restored weights and moments are
+exact, and the next two losses equal the uninterrupted trainer's
+within 1e-5 (the sharded step sums in another order)."""
 import numpy as np
 import pytest
 import torch
@@ -17,7 +23,8 @@ jax = pytest.importorskip("jax")
 jenc = pytest.importorskip("libsplinter_tpu.models.encoder")
 
 from libsplinter_tpu_torch.models import encoder as tenc  # noqa: E402
-from libsplinter_tpu_torch.parallel import make_train_step  # noqa: E402
+from libsplinter_tpu_torch.parallel import (  # noqa: E402
+    make_mesh, make_sharded_train_step, make_train_step)
 from libsplinter_tpu_torch.parallel import checkpoint as ckpt  # noqa: E402
 
 CFG = tenc.EncoderConfig.tiny(out_dim=16, dtype=torch.float32,
@@ -168,3 +175,72 @@ def test_trained_params_serve_through_embedding_model(tmp_path):
         model = tenc.EmbeddingModel(CFG, device="cpu", buckets=(32,), **kw)
         got = model.encode_ids(b["ids_a"], lens)
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def _sharded(seed=7):
+    sinit = make_sharded_train_step(CFG, make_mesh(dp=2, tp=2,
+                                                   device="cpu"))
+    b = _batch()
+    return sinit(torch.Generator().manual_seed(seed), b["ids_a"],
+                 b["mask_a"])
+
+
+def _same_moments(single, sharded):
+    """The single-card optimizer's moments equal the sharded one's,
+    gathered, exactly."""
+    full = ckpt._gather_optimizer(sharded.module, sharded.optimizer)
+    params = list(single.module.parameters())
+    assert len(full["state"]) == len(params)
+    for j, p in enumerate(params):
+        for k, v in single.optimizer.state[p].items():
+            assert torch.equal(v, full["state"][j][k]), (j, k)
+
+
+@pytest.mark.parametrize("direction", ["single_to_sharded",
+                                       "sharded_to_single"])
+def test_restore_across_the_mesh(tmp_path, direction):
+    """A single-card checkpoint restored onto the dp = 2 x tp = 2
+    trainer, and a sharded one onto the single-card trainer: weights and
+    AdamW moments exact (the qkv regroup undone), the step kept, and two
+    more steps give the uninterrupted trainer's losses."""
+    path = str(tmp_path / "ck")
+    init_fn, step_fn = make_train_step(CFG, device="cpu")
+    if direction == "single_to_sharded":
+        _, _, src = _trained()
+        src_step = step_fn
+        like, dst_step = _sharded()
+    else:
+        src, src_step = _sharded(seed=0)
+        for i in range(2):
+            src, _ = src_step(src, _batch(i))
+        like, dst_step = _fresh(init_fn), step_fn
+    ckpt.save(src, path)
+    got = ckpt.restore(path, like=like)
+    assert got.step == src.step == 2
+    single, sharded = (src, got) if direction == "single_to_sharded" \
+        else (got, src)
+    full = sharded.module.full_state_dict()
+    for name, p in single.module.state_dict().items():
+        assert torch.equal(full[name], p), name
+    _same_moments(single, sharded)
+    for i in (2, 3):
+        src, loss_a = src_step(src, _batch(i))
+        got, loss_b = dst_step(got, _batch(i))
+        assert float(loss_b) == pytest.approx(float(loss_a), abs=1e-5)
+    assert got.step == 4
+    if direction == "single_to_sharded":
+        assert got.module.replica_mismatches() == []
+
+
+def test_sharded_npz_is_the_whole_model(tmp_path):
+    """save_params_npz of a sharded trainer writes the gathered model."""
+    state, _ = _sharded()
+    p = tmp_path / "params.npz"
+    ckpt.save_params_npz(state, str(p))
+    loaded = dict(np.load(p))
+    whole = state.module.full_state_dict()
+    np.testing.assert_array_equal(
+        loaded["params/layer_0/attn/qkv/kernel"],
+        whole["layer_0.attn.qkv.weight"].T.numpy())
+    assert loaded["params/tok_emb/embedding"].shape == (CFG.vocab_size,
+                                                        CFG.hidden)

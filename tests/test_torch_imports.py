@@ -73,7 +73,9 @@ def test_no_forbidden_import_statement(path):
 
 def test_whole_port_imports_with_jax_blocked():
     """Every module of the package, and chip_smoke.py, imports in a
-    fresh interpreter where importing JAX or the JAX package fails."""
+    fresh interpreter where importing JAX or the JAX package fails —
+    the multi-GPU training modules (parallel/train, ring_attention,
+    pipeline, checkpoint, mesh) named among them."""
     code = f"""
 import importlib, importlib.util, pkgutil, sys
 for name in {FORBIDDEN!r}:
@@ -85,6 +87,8 @@ mods = [m.name for m in pkgutil.walk_packages(
     libsplinter_tpu_torch.__path__, "libsplinter_tpu_torch.")
     if not m.name.endswith(".__main__")]
 assert "libsplinter_tpu_torch.cli.search" in mods
+for name in ("train", "ring_attention", "pipeline", "checkpoint", "mesh"):
+    assert "libsplinter_tpu_torch.parallel." + name in mods, name
 for m in mods:
     importlib.import_module(m)
 spec = importlib.util.spec_from_file_location(

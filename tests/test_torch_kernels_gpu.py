@@ -214,6 +214,38 @@ def test_flash_autograd_runs_k1_and_k6(cuda, dtype):
                [t[:, :s] for t in terms])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_a_tensor_parallel_shards_shape(cuda, dtype):
+    """K1 forward and K6 backward at the shape one tp = 2 shard of the
+    sharded trainer gives them: H = 6 heads of 64 at S = 512, q/k/v
+    views of the shard's fused (B, S, 3 * 384) projection (16-byte
+    aligned in bf16), through autograd, against the plain versions."""
+    rng = np.random.default_rng(15)
+    b, s, h, d = 4, 512, 6, 64
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d))
+                           .astype(np.float32)).to(cuda, dtype)
+    qkv.requires_grad_(True)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    lens = np.array([s, 300, 129, 0])             # a fully-masked row
+    mask = torch.from_numpy(np.arange(s)[None] < lens[:, None]).to(cuda)
+    fwd, bwd = _cuda.LAUNCHES["flash_fwd"], _cuda.LAUNCHES["flash_bwd"]
+    out = flash_attention(q, k, v, mask)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)
+                         ).to(cuda, dtype)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert _cuda.LAUNCHES["flash_fwd"] == fwd + 1
+    assert _cuda.LAUNCHES["flash_bwd"] == bwd + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ref = flash_attention_plain(qd.float(), kd.float(), vd.float(), mask)
+    want, terms = flash_bwd_plain_and_terms(qd, kd, vd, out.detach(), g,
+                                            mask)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.to(dtype).float(),
+                               atol=atol, rtol=0)
+    _bwd_check(grads, want, dtype, "H=6 shard", terms)
+
+
 def _causal_inputs(rng, b, s, t, h, kh, d, dtype, dev):
     q = rng.standard_normal((b, s, h, d)).astype(np.float32)
     kk, vv = (rng.standard_normal((b, t, kh, d)).astype(np.float32)
