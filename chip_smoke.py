@@ -13,7 +13,10 @@ CUDA kernel held against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA card
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; each runs
+under a deadline of about 3x its wall on the card, PHASE_DEADLINE_S, and
+a phase that passes it fails naming itself; phases 8-15 run the
+full-width geometries at CUT_LAYERS = 4 of their 12 layers):
 
   1. device: the card's name and count, nvidia-smi's name + power limit;
   2. build: compile the kernels (csrc/*.cu, one nvcc per source, all
@@ -26,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
      f32, its row max/sum for K6 against the plain helper and its output
      identical with and without them; K6, its backward, at B=8 S=2048
      and B=16 S=512, bf16 and f32, with SDPA's backward as the
-     yardstick; K1/K6 with their TFLOP/s; K3 cosine scores at Q = 1
+     yardstick; K1/K6 with their TFLOP/s, each and its SDPA yardstick
+     timed by CUDA graph replay with the eager pace beside; K3 cosine
+     scores at Q = 1
      (the CLI's local search, exact and mxu_bf16), 8, 32 and 256 and K2
      fused top-k at Q = 8, 32 and 256 by k = 16 and 128,
      over a 1,048,576 x 768 f32 lane, with their share of the bound; K4
@@ -73,7 +78,7 @@ Phases (any failure exits non-zero and prints no result line):
      decodes; every key READY, no failure caught by the lane and every
      request's 128 tokens streamed, K5 launched on decode and on suffix
      prefills, >= 20 prefix hits, no page leaked, the pool's bytes equal
-     to its geometry; a warm and a profiled drain of 16; 8 requests
+     to its geometry; a warm and a profiled drain of 8; 4 requests
      again over int8 and int4 pools (K5 launched, no abort, full token
      count); a paged prefill + decode step
      against the dense prefill + decode_one (cosine >= 0.999);
@@ -91,17 +96,18 @@ Phases (any failure exits non-zero and prints no result line):
      in f32 (TF32 off): config and token ids exact, vectors within
      1e-5 of golden_expected.json, directly and committed by an
      in-process Embedder; embedder.main on the file alone (bf16,
-     cosine >= 0.999).  Then EncoderConfig() from seeded weights
-     written as an F16 GGUF with a 30528-entry WordPiece vocab and
-     DecoderConfig() as F16 with layer 0's attention in Q8_0 and its
-     MLP in Q4_0, a 32000-piece unigram vocab and a chatml template,
+     cosine >= 0.999).  Then EncoderConfig(layers=4) from seeded
+     weights written as an F16 GGUF with a 30528-entry WordPiece vocab
+     and DecoderConfig(layers=4) as F16 with layer 0's attention in
+     Q8_0 and its MLP in Q4_0, a 32000-piece unigram vocab and a chatml
+     template,
      each opened cold with every tensor bit-exact (the f16 rounding or
      the numpy dequantizer's output); the encoder serves 64 texts
      (K1 on buckets 512 and 1024) and a k=16 search (K2), and
      completer.main --weights <file> --continuous --template auto
      resolves chatml and serves 8 requests (K4, K5) with no abort.
      Write and cold-load seconds and each lane's rate are printed;
-  9. serving variants, all at DecoderConfig() full width on the
+  9. serving variants, all at DecoderConfig(layers=4) width on the
      continuous lane with greedy sampling, 64 new tokens a request:
      quant — the seeded float weights held as Q8_0 blocks
      (--quantized) and per output channel (--weights-int8), each
@@ -122,8 +128,8 @@ Phases (any failure exits non-zero and prints no result line):
      against the same step over the pages it was prefilled into
      (cosine >= 0.999; bit-identical expected); the handoff MB and wall;
  10. speculative: the same decoder, greedy, on the continuous lane at
-     its defaults, 16 of phase 9's prompts x 64 tokens, a self-draft of
-     its first 9 layers with gamma 4 (the acceptance floor off) against
+     its defaults, 8 of phase 9's prompts x 64 tokens, a self-draft of
+     its first 3 of 4 layers with gamma 4 (the acceptance floor off) against
      the plain lane (prefix cache off: the paired pools have none), in
      f32 (TF32 off) and bf16, the ids read back exactly: every first
      divergence must be a near-tie of the plain lane's logits there
@@ -135,9 +141,10 @@ Phases (any failure exits non-zero and prints no result line):
      DecoderConfig(layers=2) draft written by gguf_writer behind phase
      8's file on the serial lane in f32 (greedy bytes equal the
      target-only lane's) and through completer.main --draft-weights;
- 11. moe: DecoderConfig() geometry with 8 experts, top-2, written as an
-     F16 Mixtral-family GGUF (router, stacked experts, expert_count)
-     on phase 8's vocab and chatml template (~1.06 GB), read back
+ 11. moe: DecoderConfig(layers=4) geometry with 8 experts, top-2,
+     written as an F16 Mixtral-family GGUF (router, stacked experts,
+     expert_count) on phase 8's vocab and chatml template (~0.42 GB),
+     read back
      bit-exact, served by completer.main --weights <file> --continuous
      --template auto (8 requests x 64 tokens, greedy) with completions
      byte-identical to an in-process moe_completion_model's on the same
@@ -147,7 +154,7 @@ Phases (any failure exits non-zero and prints no result line):
  12. supervision: `python -m libsplinter_tpu_torch.engine.supervisor`
      started from a directory without the package, over the embedder,
      searcher, completer, pipeliner, telemetry and autoscaler lanes on a
-     file-backed store of 262,144 slots x 768-d (~250,000 unit vectors),
+     file-backed store of 65,536 slots x 768-d (~62,500 unit vectors),
      phase 8's two files as the model lanes' weights (the completer
      --continuous --temp 0 --max-new-tokens 32, pinned to card 0), and
      SPTPU_FAULT crashing the embedder at its first encode, the
@@ -171,7 +178,8 @@ Phases (any failure exits non-zero and prints no result line):
      (phase 8's files as the weights, the completer --continuous --temp
      0 --max-new-tokens 32), then the CLI against it, as subprocesses
      and in this process through cli.main.main: `health` (its wall is
-     the CLI's start-up) listing every lane's heartbeat; `ingest` of 64
+     the CLI's start-up) listing every lane's heartbeat; `lint` (the
+     port's splint over the checkout) with no finding; `ingest` of 64
      texts (16 in buckets >= 512) through one REPL, all 64 vectors
      landed, 8 against an in-process model on the file (cosine >=
      0.999); `search --local --json` in this process (one K3 launch at
@@ -194,11 +202,11 @@ Phases (any failure exits non-zero and prints no result line):
      per-shard shape of the main case (B=8 S=1024 H=KH=6) and K5 at
      H=KH=6 over bf16, int8 and int4 pools against their plain versions
      (graph replay, as phase 3's rows); the continuous lane at tp = 2 at
-     DecoderConfig() width through Completer, 16 requests x 64 tokens
+     DecoderConfig(layers=4) through Completer, 8 requests x 64 tokens
      (prompts up to ~1500 tokens, so K4 runs on each shard), greedy,
      against tp = 1 on the same weights: f32 tokens identical, bf16
      agreement and first divergences printed, each shard's K4 and K5
-     launches > 0; the tp = 2 target's self-draft (9 layers, gamma 4,
+     launches > 0; the tp = 2 target's self-draft (3 layers, gamma 4,
      8 requests) against its plain lane in f32; the split lanes at
      tp = 2 (bf16, 8 requests) identical to the unified lane, the wire
      MB printed; phase 11's MoE geometry in f32 at ep = 2 x tp = 2
@@ -239,13 +247,17 @@ Phases (any failure exits non-zero and prints no result line):
      paths), each counted from 0 just before its path runs, phases 8-15
      added to the sums.
 
-The line before the last is the kernels' JSON record; the last line is
+Before the kernels' record comes `phase walls: {...}`, each phase's
+wall in seconds.  The line before the last is the kernels' JSON record;
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
@@ -316,6 +328,116 @@ def log(*a):
 
 
 # -- timing -------------------------------------------------------------------
+
+# Each phase's deadline: about 3x its wall on the card (NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md section 6), 60 s at least.  A phase that passes
+# it fails, naming itself, long before the smoke's own time limit.
+PHASE_DEADLINE_S = {
+    "device": 60, "build": 150, "flash": 60, "flash_bwd": 60,
+    "search_kernels": 60, "causal": 60, "paged": 60, "lane": 160,
+    "completion": 180, "continuous": 240, "train": 60, "gguf": 60,
+    "variants": 60, "speculative": 100, "moe": 90, "supervision": 280,
+    "cli": 320, "sharded": 160, "train_parallel": 110,
+}
+# a phase stuck where no signal reaches it (a call that never returns to
+# the interpreter) is ended this long after its deadline
+HARD_GRACE_S = 60
+
+
+class PhaseClock:
+    """Seconds of wall per phase, and each phase's deadline.
+
+    ``with clock.phase(name):`` arms SIGALRM for PHASE_DEADLINE_S[name]:
+    a phase that outlives it raises PhaseError naming the phase in the
+    main thread, so the phase's own ``finally`` blocks still stop its
+    children.  A watchdog thread ends a phase stuck past its deadline
+    plus HARD_GRACE_S: it prints the stacks, kills every process this
+    one started and exits 1."""
+
+    # when the running phase's deadline passes (time.monotonic()), read by
+    # phase_left(); outside a phase, the longest deadline from now
+    ends = None
+
+    def __init__(self):
+        self.walls: dict[str, float] = {}
+        self._current = None            # (name, hard deadline)
+        signal.signal(signal.SIGALRM, self._expired)
+        threading.Thread(target=self._watchdog, daemon=True).start()
+
+    def _expired(self, signum, frame):
+        name = self._current[0] if self._current else "?"
+        raise PhaseError(f"phase {name} passed its deadline of "
+                         f"{PHASE_DEADLINE_S.get(name)}s")
+
+    def _watchdog(self):
+        while True:
+            time.sleep(1.0)
+            cur = self._current
+            if cur is None or time.monotonic() < cur[1]:
+                continue
+            print(f"chip_smoke: phase {cur[0]} is stuck "
+                  f"{HARD_GRACE_S}s past its deadline of "
+                  f"{PHASE_DEADLINE_S[cur[0]]}s; killing its processes",
+                  file=sys.stderr, flush=True)
+            faulthandler.dump_traceback(all_threads=True)
+            print(f"phase walls (to the failure): {self}", flush=True)
+            for pid in _descendants(os.getpid()):
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+            os._exit(1)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        limit = PHASE_DEADLINE_S[name]
+        t0 = time.perf_counter()
+        PhaseClock.ends = time.monotonic() + limit
+        self._current = (name, PhaseClock.ends + HARD_GRACE_S)
+        signal.setitimer(signal.ITIMER_REAL, limit)
+        try:
+            yield
+        except BaseException:
+            log(f"chip_smoke: phase {name} failed")
+            raise
+        finally:
+            signal.setitimer(signal.ITIMER_REAL, 0)
+            self._current = None
+            PhaseClock.ends = None
+            self.walls[name] = round(time.perf_counter() - t0, 1)
+
+    def __str__(self):
+        return json.dumps(self.walls)
+
+
+def phase_left() -> float:
+    """Seconds left before the running phase's deadline: the bound of
+    every wait inside a phase (a lane's drain, a search, a child's
+    command), so that no wait outlasts its phase."""
+    if PhaseClock.ends is None:
+        return float(max(PHASE_DEADLINE_S.values()))
+    return max(1.0, PhaseClock.ends - time.monotonic())
+
+
+def _descendants(pid: int) -> list[int]:
+    """Every live process below `pid`, read from /proc."""
+    kids: dict[int, list[int]] = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    out, todo = [], [pid]
+    while todo:
+        for c in kids.get(todo.pop(), []):
+            out.append(c)
+            todo.append(c)
+    return out
+
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean ms per call from CUDA events around `reps` back-to-back
@@ -545,27 +667,36 @@ def phase_flash(results):
             check(serr <= 1e-5 and bool((stats[:, -1] == want[:, -1]).all()),
                   f"K1 {kind} B={b} S={s}: row max/sum off by {serr}")
             del qf, kf, vf, ref32, diff, udiff, got2, stats, want
-            ms = cuda_ms(lambda: flash_attention(q, k, v, mask), reps=5)
+            # kernel and yardstick by graph replay (the wrapper's host
+            # work can set the pace of eager calls at the small shapes);
+            # the eager pace is printed beside
+            reps = (10, 3) if s > 512 else (20, 5)
+            ms = graph_ms(lambda: flash_attention(q, k, v, mask), *reps)
+            wrapper_ms = cuda_ms(lambda: flash_attention(q, k, v, mask),
+                                 reps=5)
             plain_ms = cuda_ms(
                 lambda: flash_attention_plain(q, k, v, mask), reps=3)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             bias = mask[:, None, None, :]
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=bias), reps=5)
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias), *reps)
             h, d = q.shape[2:]
             nbytes = 4 * b * s * h * d * q.element_size() + b * s * 4
             flops = 4.0 * b * h * s * s * d
             bms, by = bound(nbytes, flops, kind)
             rec = {"shape": f"B={b} S={s} H={h} D={d} {kind}",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                   "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bms, "bound_by": by,
                    "tflops": flops / ms / 1e9}
             log(f"K1 flash_fwd {rec['shape']}: err {err:.3g} (limit "
                 f"{atol}; worst {worst:.3f} of it; row max/sum within "
                 f"{serr:.2g}, output identical with them); kernel "
-                f"{ms:.3f} ms = {rec['tflops']:.1f} TFLOP/s, plain "
-                f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound "
-                f"{bms:.3f} ms ({by}, {flops / bms / 1e9:.0f} TFLOP/s)")
+                f"{ms:.4f} ms = {rec['tflops']:.1f} TFLOP/s (graph replay; "
+                f"{wrapper_ms:.4f} ms a call through the wrapper), plain "
+                f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (graph replay), "
+                f"bound {bms:.4f} ms ({by}, {flops / bms / 1e9:.0f} "
+                f"TFLOP/s; {bms / ms:.1%} of it)")
             results.setdefault("flash_fwd", []).append(rec)
             del q, k, v, got, qt, kt, vt
             torch.cuda.empty_cache()
@@ -633,9 +764,12 @@ def phase_flash_bwd(results):
                   f"K6 {kind} B={b} S={s}: dead row's dV is not the mean "
                   f"of dO")
             del ref, terms
-            ms = cuda_ms(lambda: flash_bwd_cuda(q, k, v, o, do, maskf,
-                                                stats),
-                         reps=5 if s > 512 else 10)
+            # kernel and yardstick by graph replay, the eager pace beside
+            reps = (10, 3) if s > 512 else (20, 5)
+            ms = graph_ms(lambda: flash_bwd_cuda(q, k, v, o, do, maskf,
+                                                 stats), *reps)
+            wrapper_ms = cuda_ms(lambda: flash_bwd_cuda(
+                q, k, v, o, do, maskf, stats), reps=5)
             plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, o, do, mask), reps=2)
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -651,8 +785,8 @@ def phase_flash_bwd(results):
                 return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
             with torch.no_grad():
-                fwd_ms = cuda_ms(sdpa, reps=5)
-            lib_ms = cuda_ms(sdpa_fwd_bwd, reps=5) - fwd_ms
+                fwd_ms = graph_ms(sdpa, *reps)
+            lib_ms = graph_ms(sdpa_fwd_bwd, *reps) - fwd_ms
             bms, by = _bwd_bound(q.shape, q.element_size(), kind)
             limit = (f"{F32_ATOL} max(1, max|ref|)" if kind == "f32"
                      else "2^-7 |ref| + 2^-8 (|P|^T|dO|, |dS|^T|Q|, |dS||K|)"
@@ -661,17 +795,20 @@ def phase_flash_bwd(results):
             flops = 10.0 * b * h * s * s * d          # the bound's count
             rec = {"shape": f"B={b} S={s} H={h} D={d} {kind}",
                    "max_abs_err": err, "dead_row_err": dead, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "sdpa_fwd_ms": fwd_ms, "bound_ms": bms, "bound_by": by,
+                   "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "sdpa_fwd_ms": fwd_ms,
+                   "bound_ms": bms, "bound_by": by,
                    "tflops": flops / ms / 1e9}
             log(f"K6 flash_bwd {rec['shape']}: err {err:.3g} (limit "
                 f"{limit}; worst {worst:.3f} of it; fully-masked row "
-                f"{dead:.3g}, its dV the mean of dO); kernel {ms:.3f} ms = "
+                f"{dead:.3g}, its dV the mean of dO); kernel {ms:.4f} ms = "
                 f"{rec['tflops']:.1f} TFLOP/s on the bound's 10 S^2 D "
-                f"({1.4 * rec['tflops']:.1f} on the 14 it runs), plain "
-                f"{plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms "
-                f"(fwd+bwd minus fwd {fwd_ms:.3f}), bound {bms:.3f} ms "
-                f"({by}, {flops / bms / 1e9:.0f} TFLOP/s)")
+                f"({1.4 * rec['tflops']:.1f} on the 14 it runs; graph "
+                f"replay; {wrapper_ms:.4f} ms a call through the wrapper), "
+                f"plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.4f} ms "
+                f"(graph replay, fwd+bwd minus fwd {fwd_ms:.4f}), bound "
+                f"{bms:.4f} ms ({by}, {flops / bms / 1e9:.0f} TFLOP/s; "
+                f"{bms / ms:.1%} of it)")
             results.setdefault("flash_bwd", []).append(rec)
             del q, k, v, o, do, got, qt, kt, vt, dot
             torch.cuda.empty_cache()
@@ -1336,7 +1473,8 @@ def phase_lane(nslots, card, timings, keep):
             recs = {}
 
             def client(key, k=k, recs=recs):
-                recs[key] = submit_search(st, key, k, timeout_ms=300_000)
+                recs[key] = submit_search(st, key, k,
+                                          timeout_ms=phase_left() * 1000)
 
             t0 = time.perf_counter()
             clients = [threading.Thread(target=client, args=(key,))
@@ -1344,7 +1482,7 @@ def phase_lane(nslots, card, timings, keep):
             for c in clients:
                 c.start()
             for c in clients:
-                c.join(timeout=330)
+                c.join(timeout=phase_left())
             wall = time.perf_counter() - t0
             check(all(not c.is_alive() for c in clients),
                   "search clients did not finish")
@@ -1421,6 +1559,83 @@ def _requeue(st, P, texts):
         st.bump(key)
 
 
+def _profile_sums(prof) -> tuple[dict, dict, dict]:
+    """Device ms by kernel class, by kernel name and by the aten op that
+    launched the kernel, read from the raw trace: prof.events() and
+    key_averages() build a Python event tree, minutes for a drain's
+    ~10^6 events.  A device event's linked_correlation_id is the
+    correlation id of the CPU op that launched it; each kernel is
+    charged to that op only (key_averages()' self device time charges by
+    its own rule, so the op sums are a reading, not its numbers)."""
+    import torch
+
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    op_names = {e.correlation_id(): e.name() for e in events
+                if e.device_type() != cuda}
+    by_class: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    by_op: dict[str, float] = {}
+    for evt in events:
+        if evt.device_type() != cuda:
+            continue
+        name, ms = evt.name(), evt.duration_ns() / 1e6
+        cls = _kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        by_name[name] = by_name.get(name, 0.0) + ms
+        op = op_names.get(evt.linked_correlation_id(), "")
+        if op.startswith("aten::"):
+            by_op[op] = by_op.get(op, 0.0) + ms
+    return by_class, by_name, by_op
+
+
+def _check_profile_sums(drive, card) -> dict:
+    """_profile_sums against torch.profiler's own event tree on one
+    profiled run of `drive`: the class and kernel sums equal within
+    1e-6 ms; both walls.  The op sums are printed beside
+    key_averages()' self device time, held to no limit: the two charge
+    a kernel to an op by different rules."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        drive()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = _profile_sums(prof)
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_class: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _kernel_class(evt.name)
+            by_class[cls] = by_class.get(cls, 0.0) + evt.device_time / 1e3
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.device_time / 1e3)
+    by_op = {e.key: e.self_device_time_total / 1e3
+             for e in prof.key_averages() if e.key.startswith("aten::")}
+    tree_s = time.perf_counter() - t0
+
+    def worst(a, b):
+        return max(abs(a.get(k, 0.0) - b.get(k, 0.0)) for k in {*a, *b})
+
+    busy = sum(by_class.values())
+    errs = [worst(x, y) for x, y in zip(sums, (by_class, by_name, by_op))]
+    check(busy > 0 and errs[0] <= 1e-6 and errs[1] <= 1e-6,
+          f"profile sums from the raw trace differ from the event tree's: "
+          f"class {errs[0]}, kernel {errs[1]} ms of {busy}")
+    log(f"profile sums from the raw trace: {raw_s:.3f}s against the event "
+        f"tree's {tree_s:.3f}s on one step ({busy:.2f} ms of device "
+        f"time); class and kernel sums within {max(errs[:2]):.2g} ms (limit "
+        f"1e-6); op sums {errs[2]:.4g} ms from key_averages()' self time "
+        f"({errs[2] / busy:.3g} of busy, no limit) [{card}]")
+    return {"raw_s": raw_s, "tree_s": tree_s, "busy_ms": busy,
+            "class_err_ms": errs[0], "kernel_err_ms": errs[1],
+            "op_gap_ms": errs[2]}
+
+
 def _profile_drain(drive, n_texts, warm_s, card):
     """Run `drive` (one drain of a lane, returning the requests it
     served) under torch.profiler and sum the device time of each kernel
@@ -1438,15 +1653,7 @@ def _profile_drain(drive, n_texts, warm_s, card):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     check(n == n_texts, f"profiled drain served {n} of {n_texts}")
-    by_class: dict[str, float] = {}
-    by_name: dict[str, float] = {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = evt.device_time / 1e3
-        by_class[_kernel_class(evt.name)] = \
-            by_class.get(_kernel_class(evt.name), 0.0) + ms
-        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+    by_class, by_name, by_op = _profile_sums(prof)
     busy = sum(by_class.values())
     if busy <= 0:
         log("profiled drain: the profiler saw no device time (not "
@@ -1461,8 +1668,6 @@ def _profile_drain(drive, n_texts, warm_s, card):
     for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
         log(f"  top kernel {ms:8.2f} ms  {name[:90]}")
     # the PyTorch operators whose own launches took that time
-    by_op = {e.key: e.self_device_time_total / 1e3
-             for e in prof.key_averages() if e.key.startswith("aten::")}
     for op, ms in sorted(by_op.items(), key=lambda x: -x[1])[:6]:
         log(f"  top operator {ms:8.2f} ms  {op}")
     return {"wall_ms": wall_ms, "device_ms": busy,
@@ -1665,17 +1870,18 @@ def _continuous_prompts(rng):
     return wave1, wave2
 
 
-def _drive_continuous(comp, st, P, waves, timeout=900.0):
+def _drive_continuous(comp, st, P, waves):
     """Queue waves[0], run the continuous lane on this thread (the
     profiler sees its operators), queue each later wave once the lane
     streams into the previous one, and stop the lane when every key is
-    READY.  Returns (requests served, wall seconds to the last READY)."""
+    READY, or at the phase's deadline.  Returns (requests served, wall
+    seconds to the last READY)."""
     keys = [k for w in waves for k in w]
     done = {}
     t0 = time.perf_counter()
+    deadline = time.monotonic() + phase_left()
 
     def feeder():
-        deadline = time.monotonic() + timeout
         for prev, wave in zip(waves, waves[1:]):
             first = next(iter(prev))
             while time.monotonic() < deadline and \
@@ -1696,7 +1902,7 @@ def _drive_continuous(comp, st, P, waves, timeout=900.0):
     _ask(st, P, waves[0])
     th = threading.Thread(target=feeder, daemon=True)
     th.start()
-    comp.run_continuous(idle_timeout_ms=20, stop_after=timeout + 60)
+    comp.run_continuous(idle_timeout_ms=20, stop_after=phase_left())
     th.join(timeout=60)
     check("wall" in done, f"continuous lane served {comp.stats.completions}"
           f" of {len(keys)} before the time limit")
@@ -1823,15 +2029,16 @@ def phase_continuous(card, timings):
             "k5_by_splits": by_split, "k5_combines": combines,
             "pool_mb": cache.device_mb()}
 
-        # warm: 16 of the requests again, then the same under the
+        # warm: 8 of the requests again, then the same under the
         # profiler (the lane runs on this thread)
-        warm = {k: t for k, t in list(wave1.items())[:8]
-                + list(wave2.items())[:8]}
+        warm = {k: t for k, t in list(wave1.items())[:4]
+                + list(wave2.items())[:4]}
         t_before = comp.stats.tokens
         _, warm_s = _drive_continuous(comp, st, P, [warm])
         warm_tok = comp.stats.tokens - t_before
         _check_no_abort(comp, warm_tok, len(warm), "continuous lane, warm")
-        log(f"continuous lane, warm: 16 requests, {warm_tok} tokens in "
+        log(f"continuous lane, warm: {len(warm)} requests, {warm_tok} "
+            f"tokens in "
             f"{warm_s:.3f}s = {warm_tok / warm_s:.1f} tokens/s [{card}]")
         timings["continuous_warm"] = {"wall_s": warm_s, "tokens": warm_tok,
                                       "tokens_per_s": warm_tok / warm_s}
@@ -1851,8 +2058,8 @@ def phase_continuous(card, timings):
                                template="none", max_new_tokens=128,
                                kv_dtype=kvd)
                 qc.attach()
-                some = {k: t for k, t in list(wave1.items())[:4]
-                        + list(wave1.items())[-4:]}
+                some = {k: t for k, t in list(wave1.items())[:2]
+                        + list(wave1.items())[-2:]}
                 _cuda.LAUNCHES.reset()
                 LAUNCHES_BY_QTOKENS.clear()
                 _, qwall = _drive_continuous(qc, qst, P, [some])
@@ -1869,8 +2076,9 @@ def phase_continuous(card, timings):
                 ratio = qcache.device_mb() / want_mb
                 check(qcache.device_mb() == want,
                       f"{kvd} pool {qcache.device_mb()} MB, computed {want}")
-                log(f"continuous lane, kv_dtype {kvd}: 8 requests, "
-                    f"{qc.stats.tokens} tokens in {qwall:.3f}s; pool "
+                log(f"continuous lane, kv_dtype {kvd}: {len(some)} "
+                    f"requests, {qc.stats.tokens} tokens in {qwall:.3f}s; "
+                    f"pool "
                     f"{qcache.device_mb():.1f} MB = {ratio:.4f} x bf16 "
                     f"(values {0.5 if kvd == 'int8' else 0.25} + scales); "
                     f"{qc.prefix_cache.stats.hits} prefix hits [{card}]")
@@ -2043,6 +2251,7 @@ def phase_train(card, timings):
 
     timings["train_profile"] = _profile_drain(one_step, 1,
                                               wall / TRAIN_STEPS, card)
+    timings["profile_sums_check"] = _check_profile_sums(one_step, card)
 
     long = _train_batch(rng, cfg.vocab_size, 4, 2048, 512)
     state, _ = step_fn(state, long)              # allocator, cuBLAS shapes
@@ -2117,6 +2326,12 @@ def phase_train(card, timings):
 
 
 # -- phase 8: GGUF checkpoints, opened cold ----------------------------------
+
+# Phases 8-15 run the full-width geometries cut in depth, so the smoke
+# stays well inside its time limit: CUT_LAYERS of the 12 layers of
+# DecoderConfig() and EncoderConfig() (MoE and the trainers included).
+# Phases 4-7 run all 12.
+CUT_LAYERS = 4
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures")
@@ -2235,9 +2450,10 @@ def _nest(flat):
 
 
 def _gguf_encoder(card, timings, tmp):
-    """EncoderConfig() from seeded weights written as an F16 GGUF with a
-    30528-entry WordPiece vocab, opened cold: every loaded tensor equal
-    to the f16 rounding of its source; the embed lane over 64 texts
+    """EncoderConfig(layers=CUT_LAYERS) from seeded weights written as an
+    F16 GGUF with a 30528-entry WordPiece vocab, opened cold: every
+    loaded tensor equal to the f16 rounding of its source; the embed
+    lane over 64 texts
     (K1 in the bucket-1024 ones) and a k = 16 search (K2)."""
     import torch
 
@@ -2258,7 +2474,7 @@ def _gguf_encoder(card, timings, tmp):
                                                           export_encoder_gguf)
     from libsplinter_tpu_torch.ops import _cuda
 
-    cfg = EncoderConfig()
+    cfg = EncoderConfig(layers=CUT_LAYERS)
     rng = np.random.default_rng(31)
     with torch.device("cuda"):
         src = Encoder(cfg)
@@ -2292,7 +2508,8 @@ def _gguf_encoder(card, timings, tmp):
     check(not bad, f"encoder: {len(bad)} tensors differ from the f16 "
           f"rounding of their source, e.g. {bad[:3]}")
     del sd, want
-    log(f"gguf encoder: EncoderConfig() as F16 ({os.path.getsize(path)} "
+    log(f"gguf encoder: EncoderConfig(layers={cfg.layers}) as F16 "
+        f"({os.path.getsize(path)} "
         f"bytes, vocab {len(vocab)}) written in {write_s:.2f}s, cold load "
         f"(open, config, tokenizer, dequantize, to the card) {load_s:.2f}s; "
         f"every tensor equal to the f16 rounding of its source [{card}]")
@@ -2334,7 +2551,7 @@ def _gguf_encoder(card, timings, tmp):
         src_key = "gguf/00"
         st.set("__q/gguf", "q")
         st.vec_set("__q/gguf", st.vec_get(src_key))
-        rec = submit_search(st, "__q/gguf", 16, timeout_ms=300_000)
+        rec = submit_search(st, "__q/gguf", 16, timeout_ms=phase_left() * 1000)
         stop.set()
         drainer.join(timeout=60)
         check(not drainer.is_alive(), "searcher thread did not stop")
@@ -2481,9 +2698,10 @@ def _gguf_decoder_file(cfg, tmp, rng, name="decoder-f16-q8-q4.gguf",
 
 
 def _gguf_decoder(card, timings, tmp):
-    """DecoderConfig() as a GGUF opened cold (every loaded tensor equal
-    to its source's f16 rounding or, for the Q8_0 and Q4_0 ones, to the
-    numpy dequantizer's output), then completer.main on the file alone
+    """DecoderConfig(layers=CUT_LAYERS) as a GGUF opened cold (every
+    loaded tensor equal to its source's f16 rounding or, for the Q8_0
+    and Q4_0 ones, to the numpy dequantizer's output), then
+    completer.main on the file alone
     with --continuous --template auto: chatml from the file, 8 requests
     served on the card with K4 and K5."""
     import torch
@@ -2498,7 +2716,7 @@ def _gguf_decoder(card, timings, tmp):
                                               load_tokenizer)
     from libsplinter_tpu_torch.ops import _cuda
 
-    cfg = DecoderConfig()
+    cfg = DecoderConfig(layers=CUT_LAYERS)
     rng = np.random.default_rng(37)
     path, write_s, expect, words = _gguf_decoder_file(cfg, tmp, rng)
     t0 = time.perf_counter()
@@ -2516,7 +2734,8 @@ def _gguf_decoder(card, timings, tmp):
           f"source's dequantized value, e.g. {bad[:3]}")
     del model, sd, expect
     torch.cuda.empty_cache()
-    log(f"gguf decoder: DecoderConfig() as F16 + layer 0 Q8_0/Q4_0 "
+    log(f"gguf decoder: DecoderConfig(layers={cfg.layers}) as F16 + layer "
+        f"0 Q8_0/Q4_0 "
         f"({os.path.getsize(path)} bytes, vocab {tok.vocab_size}) written "
         f"in {write_s:.2f}s, cold load (open, config, tokenizer, "
         f"dequantize, to the card) {load_s:.2f}s; every tensor equal to "
@@ -2548,7 +2767,7 @@ def _gguf_decoder(card, timings, tmp):
     done, finished = {}, threading.Event()
 
     def feeder():
-        deadline = time.monotonic() + 600
+        deadline = time.monotonic() + phase_left()
         while not made:                 # main builds the lane's Completer
             if finished.wait(0.01) or time.monotonic() > deadline:
                 return
@@ -2735,7 +2954,7 @@ def _variants_quant(card, timings, sd, prompts, gguf_path):
                                                     quantize_state_dict,
                                                     resident_bytes)
 
-    cfg = DecoderConfig()
+    cfg = DecoderConfig(layers=CUT_LAYERS)
     ids = np.asarray(_piece_tokenizer().encode(prompts["s/00"]), np.int32)
     launches, out = {}, {}
     for variant, mode in (("quantized", "block"), ("weights_int8", "channel")):
@@ -2951,7 +3170,7 @@ def _variants_disagg(card, timings, model, prompts, tmp,
             return done
 
     outs = {}
-    # the handoff writes each wire page (4.7 MB at full width) as one
+    # the handoff writes each wire page (4.7 MB at 12 layers) as one
     # store value: the split lanes share a file-backed store whose
     # values hold a page
     wire_path = os.path.join(tmp, "disagg.spt")
@@ -2977,7 +3196,7 @@ def _variants_disagg(card, timings, model, prompts, tmp,
             _cuda.LAUNCHES.reset()
             th = threading.Thread(target=pf.run_continuous,
                                   kwargs=dict(idle_timeout_ms=20,
-                                              stop_after=900.0),
+                                              stop_after=phase_left()),
                                   daemon=True)
             th.start()
             n, wall = _drive_continuous(dl, st, P, [prompts])
@@ -3060,15 +3279,15 @@ def _variants_disagg(card, timings, model, prompts, tmp,
 
 def phase_variants(card, timings, tmp):
     """Int8-resident weights, the host-DRAM KV tier and the disaggregated
-    lanes, each at DecoderConfig() full width on the continuous lane
+    lanes, each at DecoderConfig(layers=CUT_LAYERS) on the continuous lane
     with greedy sampling; returns K4/K5 launches by path."""
     import torch
 
     from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
 
     t0 = time.perf_counter()
-    model = CompletionModel(DecoderConfig(), seed=0, temp=0.0,
-                            device="cuda")
+    model = CompletionModel(DecoderConfig(layers=CUT_LAYERS), seed=0,
+                            temp=0.0, device="cuda")
     # the float weights every variant starts from, f32 on the host
     sd = {k: v.float().cpu() for k, v in model.module.state_dict().items()}
     prompts = _variant_prompts(np.random.default_rng(11), 16)
@@ -3087,7 +3306,7 @@ def phase_variants(card, timings, tmp):
 # -- phase 10: speculative decoding ------------------------------------------
 
 SPEC_NEW_TOKENS = 64
-SPEC_DRAFT_LAYERS, SPEC_GAMMA = 9, 4
+SPEC_DRAFT_LAYERS, SPEC_GAMMA = 3, 4       # 3 of CUT_LAYERS
 
 
 def _id_tokenizer():
@@ -3215,9 +3434,10 @@ def _spec_pair(model):
 
 def _spec_compare(card, model, prompts, what, near_tie, tie_text):
     """The plain lane and the speculative lane (a self-draft of the
-    first 9 layers, gamma 4, the acceptance floor off so the lane stays
-    speculative) over the same prompts, both without the prefix cache
-    (the paired pools have none); returns the record and launches."""
+    first SPEC_DRAFT_LAYERS layers, gamma 4, the acceptance floor off so
+    the lane stays speculative) over the same prompts, both without the
+    prefix cache (the paired pools have none); returns the record and
+    launches."""
     plain, p_wall, p_counts, p_by_q, p_comp, p_held = _ids_lane(
         model, prompts, f"{what} plain", prefix_cache=False)
     spec_model = _spec_pair(model)
@@ -3418,9 +3638,10 @@ def _spec_draft_weights(card, tmp):
 
 def phase_speculative(card, timings, tmp):
     """Speculative decoding on the continuous lane at DecoderConfig()
-    width, greedy, 16 of phase 9's prompts x 64 tokens, a self-draft of
-    9 layers and gamma 4: f32 (TF32 off) and bf16 against the plain lane
-    token for token (first divergences only at near-ties), acceptance
+    width and CUT_LAYERS depth, greedy, 8 of phase 9's prompts x 64
+    tokens, a self-draft of 3 of 4 layers and gamma 4: f32 (TF32 off)
+    and bf16 against the plain lane token for token (first divergences
+    only at near-ties), acceptance
     and counters, no page held; the demotion drill; the serial lane
     with a --draft-weights GGUF.  Returns K4/K5 launches by path."""
     import torch
@@ -3428,16 +3649,18 @@ def phase_speculative(card, timings, tmp):
     from libsplinter_tpu_torch.models import CompletionModel, DecoderConfig
 
     t0 = time.perf_counter()
-    prompts = _variant_prompts(np.random.default_rng(11), 16)
+    prompts = _variant_prompts(np.random.default_rng(11), 8)
     out, launches = {}, {}
-    m32 = CompletionModel(DecoderConfig(dtype=torch.float32), seed=0,
+    m32 = CompletionModel(DecoderConfig(layers=CUT_LAYERS,
+                                        dtype=torch.float32), seed=0,
                           temp=0.0, device="cuda")
     out["f32"], launches["f32"] = _spec_compare(
         card, m32, prompts, "f32", lambda a, b: a - b < 1e-4,
         "top-2 within 1e-4")
     del m32
     torch.cuda.empty_cache()
-    model = CompletionModel(DecoderConfig(), seed=0, temp=0.0, device="cuda")
+    model = CompletionModel(DecoderConfig(layers=CUT_LAYERS), seed=0,
+                            temp=0.0, device="cuda")
     out["bf16"], launches["bf16"] = _spec_compare(
         card, model, prompts, "bf16", _bf16_near_tie,
         "top-2 within 4 bf16 ulps of the larger")
@@ -3482,7 +3705,7 @@ def _moe_main(card, path, prompts, extra, what):
     done, finished = {}, threading.Event()
 
     def feeder():
-        deadline = time.monotonic() + 600
+        deadline = time.monotonic() + phase_left()
         while not made:
             if finished.wait(0.01) or time.monotonic() > deadline:
                 return
@@ -3580,7 +3803,7 @@ def phase_moe(card, timings, tmp):
                                                     quantize_state_dict)
 
     t0 = time.perf_counter()
-    cfg = MoeDecoderConfig(n_experts=8, top_k=2)
+    cfg = MoeDecoderConfig(n_experts=8, top_k=2, layers=CUT_LAYERS)
     rng = np.random.default_rng(37)              # phase 8's vocab draw
     path, write_s, expect, words = _gguf_decoder_file(
         cfg, tmp, rng, name="moe-8x-f16.gguf", mixed=False, seed=47)
@@ -3596,8 +3819,9 @@ def phase_moe(card, timings, tmp):
     del expect
     prompts = {f"moe/{i}": " ".join(rng.choice(words, n))
                for i, n in enumerate((30, 90, 160, 240, 320, 400, 520, 640))}
-    log(f"moe: MoeDecoderConfig(8 experts, top-2) at DecoderConfig() width "
-        f"as F16 ({os.path.getsize(path)} bytes) written in {write_s:.2f}s, "
+    log(f"moe: MoeDecoderConfig(8 experts, top-2, {cfg.layers} layers) at "
+        f"DecoderConfig() width as F16 ({os.path.getsize(path)} bytes) "
+        f"written in {write_s:.2f}s, "
         f"config + state_dict read back in {load_s:.2f}s, every tensor its "
         f"source's f16 rounding [{card}]")
 
@@ -3665,7 +3889,7 @@ def phase_moe(card, timings, tmp):
 
 # -- phase 12: supervision ----------------------------------------------------
 
-SUP_SLOTS = 262144
+SUP_SLOTS = 65536
 SUP_NEW_TOKENS = 32
 SUP_LANES = ("embedder", "searcher", "completer", "pipeliner", "telemetry",
              "autoscaler")
@@ -3857,8 +4081,8 @@ def phase_supervision(card, timings, tmp):
             st.bump(key)
         _ask(st, P, prompts)
         busy = P.LBL_EMBED_REQ | P.LBL_WAITING
-        _wait_for(lambda: not any(st.labels(k) & busy for k in texts), 300,
-                  "the 32 embeds")
+        _wait_for(lambda: not any(st.labels(k) & busy for k in texts),
+                  phase_left(), "the 32 embeds")
         embed_s = time.perf_counter() - t_emb
         for key in texts:
             v = st.vec_get(key)
@@ -3904,9 +4128,9 @@ def phase_supervision(card, timings, tmp):
             st.set(f"__q/sup{j}", "q")
             st.vec_set(f"__q/sup{j}", st.vec_get(src))
         t_srch = time.perf_counter()
-        recs = {k: {f"__q/sup{j}": submit_search(st, f"__q/sup{j}", k,
-                                                 timeout_ms=300_000)
-                    for j in range(len(srcs))} for k in (10, 200)}
+        recs = {k: {f"__q/sup{j}": submit_search(
+            st, f"__q/sup{j}", k, timeout_ms=phase_left() * 1000)
+            for j in range(len(srcs))} for k in (10, 200)}
         search_s = time.perf_counter() - t_srch
         _wait_for(lambda: watch.lane("searcher").get("restarts", 0) >= 1,
                   30, "the searcher's restart")
@@ -3981,14 +4205,15 @@ def phase_supervision(card, timings, tmp):
         t_rag = time.perf_counter()
         rag = submit_script(st, "__rag/sup", script=RAG_SCRIPT,
                             args=["__rag/q", qtext, 5, "rag/answer"],
-                            timeout_ms=300_000)
+                            timeout_ms=phase_left() * 1000)
         rag_s = time.perf_counter() - t_rag
         check(rag is not None and rag.get("ok") is True,
               f"RAG chain: {rag}")
         hits = rag["ret"][0]
         st.set("__q/rag", "q")
         st.vec_set("__q/rag", st.vec_get("__rag/q"))
-        direct = submit_search(st, "__q/rag", 5, timeout_ms=300_000)
+        direct = submit_search(st, "__q/rag", 5,
+                               timeout_ms=phase_left() * 1000)
         check(direct is not None and direct.get("keys") == hits
               and hits[0] == srcs[1],
               f"RAG chain hits {hits} != a direct search's {direct}")
@@ -4013,7 +4238,7 @@ def phase_supervision(card, timings, tmp):
             return (rec is not None and "1" in rec.get("owners", {})
                     and not rec.get("pending"))
 
-        _wait_for(promoted, 180, "replica 1's promotion")
+        _wait_for(promoted, phase_left(), "replica 1's promotion")
         up_s = time.perf_counter() - t_up
         t_hb = time.time()
         _wait_for(lambda: fresh(P.KEY_EMBED_STATS, t_hb), 30,
@@ -4026,8 +4251,8 @@ def phase_supervision(card, timings, tmp):
             st.set_type(key, T_VARTEXT)
             st.label_or(key, P.LBL_EMBED_REQ | P.LBL_WAITING)
             st.bump(key)
-        _wait_for(lambda: not any(st.labels(k) & busy for k in burst), 300,
-                  "the burst")
+        _wait_for(lambda: not any(st.labels(k) & busy for k in burst),
+                  phase_left(), "the burst")
         burst_s = time.perf_counter() - t_burst
         r1_key = P.replica_stats_key(P.KEY_EMBED_STATS, 1)
 
@@ -4210,13 +4435,13 @@ def _spt_argv(path, *args):
             path, "--persistent", *args]
 
 
-def _spt(path, args, env, cwd, *, stdin=None, timeout=600, ok=True):
-    """One `python -m libsplinter_tpu_torch.cli` as a subprocess:
-    (exit code, stdout, stderr, wall s)."""
+def _spt(path, args, env, cwd, *, stdin=None, ok=True):
+    """One `python -m libsplinter_tpu_torch.cli` as a subprocess, ended
+    at the phase's deadline: (exit code, stdout, stderr, wall s)."""
     t0 = time.perf_counter()
     r = subprocess.run(_spt_argv(path, *args), cwd=cwd, env=env,
                        input=stdin, capture_output=True, text=True,
-                       timeout=timeout)
+                       timeout=phase_left())
     wall = time.perf_counter() - t0
     if ok:
         check(r.returncode == 0, f"spt {' '.join(args)[:80]}: exit "
@@ -4424,9 +4649,14 @@ def phase_cli(card, timings, tmp, lane_path):
             check("s ago" in line and "[DEAD" not in line
                   and "[STALE" not in line, f"health: {label}: {line!r}")
         _, _, _, config_s = _spt(lane_path, ["config"], env, work)
+        # the port's splint over the checkout's libsplinter_tpu_torch/
+        _, out, _, lint_s = _spt(lane_path, ["lint"], env, work)
+        lint_tail = out.strip().splitlines()[-1]
+        check(lint_tail.startswith("splint: 0 finding(s)"),
+              f"lint: {out[-2000:]}")
         log(f"cli: one-shot torch-free commands: health {health_s:.3f}s "
-            f"(every lane's heartbeat listed), config {config_s:.3f}s "
-            f"[{card}]")
+            f"(every lane's heartbeat listed), config {config_s:.3f}s, "
+            f"lint {lint_s:.3f}s (exit 0: {lint_tail}) [{card}]")
 
         # 3. ingest 64 texts (16 in buckets >= 512) through one REPL
         texts = _sup_texts(rng, words, 16, 48, "cli")
@@ -4442,8 +4672,8 @@ def phase_cli(card, timings, tmp, lane_path):
               f"ingest: {out[-500:]}")
         t_emb = time.perf_counter()
         busy = P.LBL_EMBED_REQ | P.LBL_WAITING
-        _wait_for(lambda: not any(st.labels(k) & busy for k in texts), 300,
-                  "the 64 ingested vectors")
+        _wait_for(lambda: not any(st.labels(k) & busy for k in texts),
+                  phase_left(), "the 64 ingested vectors")
         land_s = time.perf_counter() - t_emb
         for key in texts:
             v = st.vec_get(key)
@@ -4539,7 +4769,7 @@ def phase_cli(card, timings, tmp, lane_path):
         t_imp = time.perf_counter()
         subprocess.run([sys.executable, "-c",
                         "import libsplinter_tpu_torch.engine.searcher"],
-                       cwd=work, env=env, timeout=300, check=True)
+                       cwd=work, env=env, timeout=phase_left(), check=True)
         import_s = time.perf_counter() - t_imp
         t_hb = time.time()
         _wait_for(lambda: (hb := _read_json(st, P.KEY_SEARCH_STATS))
@@ -4656,7 +4886,8 @@ def phase_cli(card, timings, tmp, lane_path):
         hits = rec["ret"][0]
         st.set("__q/rag", "q")
         st.vec_set("__q/rag", st.vec_get("__rag/q"))
-        direct = submit_search(st, "__q/rag", 5, timeout_ms=300_000)
+        direct = submit_search(st, "__q/rag", 5,
+                               timeout_ms=phase_left() * 1000)
         check(direct is not None and direct.get("keys") == hits
               and hits[0] == qkey, f"RAG hits {hits} != a direct "
               f"search's {direct}")
@@ -4684,7 +4915,7 @@ def phase_cli(card, timings, tmp, lane_path):
             str(LOADGEN_RATE), "--arrivals", "fixed", "--mix",
             "embed:1,search:1,complete:1", "--seed", "13",
             "--trace-sample", "1.0", "--drain-s", "60", "--json"],
-            env, work, timeout=300)
+            env, work)
         rep, end = json.JSONDecoder().raw_decode(out)
         check(out[end:].strip() == "done", f"loadgen: {out[end:]!r}")
         check(rep["lost"] == 0 and rep["issued"] >= LOADGEN_S
@@ -4749,7 +4980,8 @@ def phase_cli(card, timings, tmp, lane_path):
         log(f"cli phase: {wall:.1f}s [{card}]")
         timings["cli"] = {
             "wall_s": wall, "stack_up_s": up_s, "health_s": health_s,
-            "config_s": config_s, "ingest_s": ingest_s, "land_s": land_s,
+            "config_s": config_s, "lint_s": lint_s, "ingest_s": ingest_s,
+            "land_s": land_s,
             "local_s": local_s, "local_parts_s": parts,
             "daemon_search_one_shot_s": one_shot_s,
             "daemon_search_s": dwall, "searcher_import_s": import_s,
@@ -4843,8 +5075,9 @@ def _sharded_lanes(card, mesh, prompts, out, tmp):
     tok = _piece_tokenizer()
     longest = max(len(tok.encode(t)) for t in prompts.values())
     check(longest > 512, f"no prompt reaches K4's buckets ({longest} tokens)")
-    for kind, cfg in (("f32", DecoderConfig(dtype=torch.float32)),
-                      ("bf16", DecoderConfig())):
+    for kind, cfg in (("f32", DecoderConfig(layers=CUT_LAYERS,
+                                            dtype=torch.float32)),
+                      ("bf16", DecoderConfig(layers=CUT_LAYERS))):
         one = CompletionModel(cfg, seed=0, temp=0.0, device="cuda")
         two = ShardedCompletionModel(cfg, mesh,
                                      params=one.module.state_dict(),
@@ -4880,7 +5113,7 @@ def _sharded_lanes(card, mesh, prompts, out, tmp):
                      "tp2_tokens_per_s": tokens / w2, "by_shard": shards}
         launches[kind] = c2
         if kind == "f32":
-            # the self-draft of the tp = 2 target (9 layers, gamma 4)
+            # the self-draft of the tp = 2 target (3 layers, gamma 4)
             # against its plain lane
             eight = dict(list(prompts.items())[:8])
             rec, launches["spec"] = _spec_compare(
@@ -4905,15 +5138,17 @@ def _sharded_lanes(card, mesh, prompts, out, tmp):
 
 
 def _sharded_moe(card, prompts, out):
-    """Phase 11's MoE geometry (DecoderConfig() width, 8 experts, top-2)
-    in f32 at ep = 2 x tp = 2 against ep = 1, seeded weights."""
+    """Phase 11's MoE geometry (DecoderConfig() width, 4 layers, 8
+    experts, top-2) in f32 at ep = 2 x tp = 2 against ep = 1, seeded
+    weights."""
     import torch
 
     from libsplinter_tpu_torch.models import (MoeDecoderConfig,
                                               moe_completion_model)
 
     mesh, how = _shard_mesh(tp=2, ep=2)
-    cfg = MoeDecoderConfig(n_experts=8, top_k=2, dtype=torch.float32)
+    cfg = MoeDecoderConfig(n_experts=8, top_k=2, layers=CUT_LAYERS,
+                           dtype=torch.float32)
     one = moe_completion_model(cfg, seed=0, temp=0.0, device="cuda")
     four = moe_completion_model(cfg, mesh, params=one.module.state_dict(),
                                 temp=0.0)
@@ -5119,10 +5354,9 @@ def phase_sharded(card, timings, tmp, results, lane_path):
     phase_causal(results, SHARD_CAUSAL_CASES)
     phase_paged(results, SHARD_PAGED_CASES, h=6)
     out: dict = {"mesh": how}
-    prompts = _variant_prompts(np.random.default_rng(11), 16)
+    prompts = _variant_prompts(np.random.default_rng(11), 8)
     launches = _sharded_lanes(card, mesh, prompts, out, tmp)
-    launches["moe"] = _sharded_moe(card, dict(list(prompts.items())[:8]),
-                                   out)
+    launches["moe"] = _sharded_moe(card, prompts, out)
     launches.update(_sharded_search(card, lane_path, out))
     _sharded_refusal(card, out)
     torch.cuda.empty_cache()
@@ -5645,34 +5879,48 @@ def main() -> int:
     results: dict = {}
     timings: dict = {}
     t_start = time.perf_counter()
+    clock = PhaseClock()
     tmp = tempfile.mkdtemp(prefix="spt-smoke-files-")
     try:
-        name, count, card = phase_device()
-        phase_build()
-        phase_flash(results)
-        phase_flash_bwd(results)
-        phase_search_kernels(results, 1 << 20)
-        phase_causal(results)
-        phase_paged(results)
-        counts = phase_lane(_lane_slots(1 << 20), card, timings, tmp)
-        k4 = {"phase 5": phase_completion(card, timings)["causal_fwd"]}
-        cont = phase_continuous(card, timings)
+        with clock.phase("device"):
+            name, count, card = phase_device()
+        with clock.phase("build"):
+            phase_build()
+        with clock.phase("flash"):
+            phase_flash(results)
+        with clock.phase("flash_bwd"):
+            phase_flash_bwd(results)
+        with clock.phase("search_kernels"):
+            phase_search_kernels(results, 1 << 20)
+        with clock.phase("causal"):
+            phase_causal(results)
+        with clock.phase("paged"):
+            phase_paged(results)
+        with clock.phase("lane"):
+            counts = phase_lane(_lane_slots(1 << 20), card, timings, tmp)
+        with clock.phase("completion"):
+            k4 = {"phase 5": phase_completion(card, timings)["causal_fwd"]}
+        with clock.phase("continuous"):
+            cont = phase_continuous(card, timings)
         counts["paged_fwd"] = cont["paged_fwd"]
         # K4 runs on both completion lanes, each counted from 0 just
         # before its path: the record carries their sum
         k4["phase 6"] = cont["causal_fwd"]
         counts["causal_fwd"] = sum(k4.values())
         timings["causal_fwd_launches"] = k4
-        counts["flash_bwd"] = phase_train(card, timings)["flash_bwd"]
+        with clock.phase("train"):
+            counts["flash_bwd"] = phase_train(card, timings)["flash_bwd"]
         # K1, K2, K4 and K5 again from GGUF-loaded weights, counted from
         # 0 before each of this phase's paths: the record carries sums
-        gguf = phase_gguf(card, timings, tmp)
+        with clock.phase("gguf"):
+            gguf = phase_gguf(card, timings, tmp)
         for k, v in gguf.items():
             counts[k] += v
         timings["gguf_launches"] = gguf
         # K4 and K5 once more on each serving variant's path (int8
         # weights, the KV tier, the split lanes), each counted from 0
-        variants = phase_variants(card, timings, tmp)
+        with clock.phase("variants"):
+            variants = phase_variants(card, timings, tmp)
         for path in variants.values():
             for k, v in path.items():
                 counts[k] += v
@@ -5681,7 +5929,8 @@ def main() -> int:
         # counted from 0 just before it runs
         for phase, key in ((phase_speculative, "speculative_launches"),
                            (phase_moe, "moe_launches")):
-            paths = phase(card, timings, tmp)
+            with clock.phase(phase.__name__[len("phase_"):]):
+                paths = phase(card, timings, tmp)
             for path in paths.values():
                 for k, v in path.items():
                     counts[k] += v
@@ -5689,39 +5938,45 @@ def main() -> int:
         # the whole serving surface as supervised child processes: each
         # lane's launches come from its own heartbeat, every child
         # starting from 0 after this point
-        sup, sup_counts = phase_supervision(card, timings, tmp)
+        with clock.phase("supervision"):
+            sup, sup_counts = phase_supervision(card, timings, tmp)
         for k, v in sup_counts.items():
             counts[k] += v
         timings["supervision_launches"] = sup
         # the operator CLI over phase 4's store: the children's launches
         # from their heartbeats, the CLI's own (K3 at Q = 1) from this
         # process, each counting from 0 after this point
-        cli, cli_counts = phase_cli(card, timings, tmp,
-                                    os.path.join(tmp, "lane.spt"))
+        with clock.phase("cli"):
+            cli, cli_counts = phase_cli(card, timings, tmp,
+                                        os.path.join(tmp, "lane.spt"))
         for path in list(cli.values()) + [cli_counts]:
             for k, v in path.items():
                 counts[k] += v
         timings["cli_launches"] = dict(cli, cli=cli_counts)
         # sharded serving: K2-K5 at their per-shard shapes on each path,
         # each counted from 0 just before it runs
-        sharded, sharded_sums = phase_sharded(
-            card, timings, tmp, results, os.path.join(tmp, "lane.spt"))
+        with clock.phase("sharded"):
+            sharded, sharded_sums = phase_sharded(
+                card, timings, tmp, results, os.path.join(tmp, "lane.spt"))
         for k, v in sharded_sums.items():
             counts[k] += v
         timings["sharded_launches"] = sharded
         # multi-GPU training: K1 and K6 at the per-shard and per-stage
         # shapes on each path, each counted from 0 just before it runs
-        par = phase_train_parallel(card, timings, results)
+        with clock.phase("train_parallel"):
+            par = phase_train_parallel(card, timings, results)
         for k, v in par.items():
             counts[k] += v
         timings["train_parallel_launches"] = par
     except Exception:
         traceback.print_exc()
+        log(f"phase walls (to the failure): {clock}")
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    log(f"phase walls: {clock}")
     log(json.dumps({"kernels": counts}))
     if not all(counts[k] > 0 for k in REPLACES):
         print(f"chip_smoke: a kernel never ran on the main path: {counts}",

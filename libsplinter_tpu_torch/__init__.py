@@ -18,6 +18,8 @@ nothing from it (nor JAX).  Layers mirror the reference layout:
   obs/, utils/      telemetry, tracing, fault injection
   scripting/        the Lua and WASM hosts
   cli/              the operator CLI: python -m libsplinter_tpu_torch.cli
+  analysis/         splint over this package (stdlib `ast` only):
+                    python -m libsplinter_tpu_torch.cli lint
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

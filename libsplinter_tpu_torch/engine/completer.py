@@ -1308,6 +1308,7 @@ class Completer:
                         if ins and tenant:
                             self.tenants.bump(
                                 tenant, "prefix_cached_pages", ins)
+                    # splint: ignore[SPL201] reason=the documented host "sample" stage (CONT_INFER_STAGES): one scalar draw per JOIN so the row's first token emits before the next chunk, not per decode step
                     t = int(m.sample(logits))
                     if traced:
                         tc = time.perf_counter()

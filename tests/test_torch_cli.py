@@ -5,7 +5,8 @@ config/export/bump/append/uuid/math/label/shard/watch/search, the
 port's Embedder with the fake encoder, `search --cpu` where the JAX
 package's test let its CPU default score; `search --sharded --cpu` on
 the pod path, its fetch growing past stale scratch rows), then what only
-the port has: `lint` refuses with its pointer, a local-path search and a
+the port has: `lint` runs the port's splint (clean on the tree, exit 1
+on a hazard seeded under --root), a local-path search and a
 sharded one without --cpu refuse on a host without CUDA, the commands
 that score nothing run with torch unimportable, the stale-scratch growth
 on the search daemon's path, and the REPL's second local search staging
@@ -411,12 +412,42 @@ def test_sharded_search_grows_past_stale_scratch(cli, capsys):
     st.close()
 
 
-def test_lint_refused_with_pointer(cli, capsys):
+def test_lint_clean_on_the_tree(cli, capsys):
+    """`lint` runs the port's splint over libsplinter_tpu_torch/: no
+    finding, the two intentional host syncs suppressed with reasons."""
     run, _ = cli
-    assert run("lint") == 1
-    err = capsys.readouterr().err
-    assert "python -m libsplinter_tpu.cli lint" in err
-    assert "make lint-check" in err
+    assert run("lint") == 0
+    cap = capsys.readouterr()
+    assert "splint: 0 finding(s), 2 suppressed, 0 baselined" in cap.out
+    assert "11 rules" in cap.out
+    assert cap.err.count("  suppressed: libsplinter_tpu_torch/engine/") == 2
+
+
+@pytest.mark.parametrize("hazard", [False, True], ids=["clean", "hazard"])
+def test_lint_on_a_seeded_tree(cli, capsys, tmp_path, hazard):
+    """Under --root, a tree holding the port's protocol.py and docs is
+    clean (exit 0); a synchronize seeded into a drain loop fails it
+    (exit 1) with a `file:line · RULE_ID` line."""
+    run, _ = cli
+    engine = tmp_path / "libsplinter_tpu_torch" / "engine"
+    engine.mkdir(parents=True)
+    (engine / "protocol.py").write_text(
+        (ROOT / "libsplinter_tpu_torch" / "engine" / "protocol.py")
+        .read_text())
+    for rel in ("docs/operations.md", "docs/api/bloom-labels.md"):
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_text((ROOT / rel).read_text())
+    if hazard:
+        (engine / "evil.py").write_text(
+            "import torch\n"
+            "def run_continuous(self):\n"
+            "    torch.cuda.synchronize()\n")
+    assert run("lint", "--root", str(tmp_path)) == int(hazard)
+    cap = capsys.readouterr()
+    line = ("libsplinter_tpu_torch/engine/evil.py:3 · SPL201 · "
+            "torch.cuda.synchronize() in run_continuous()")
+    assert (line in cap.out) == hazard
+    assert ("1 unsuppressed splint finding(s)" in cap.err) == hazard
 
 
 def test_local_search_without_cuda_refuses(cli, capsys):

@@ -5,6 +5,7 @@ whose label bits, key names and JSON contracts let torch and JAX
 daemons share one store."""
 import ast
 import filecmp
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -130,6 +131,118 @@ def test_store_copy_differs_only_in_list():
     supervisor and the searcher list keys every poll)."""
     assert _without_store_list(PORT / "store.py") == \
         _without_store_list(ROOT / "libsplinter_tpu" / "store.py")
+
+
+# splint's engine, registry, rules and runner: the JAX package's code with
+# the port's paths.  Per file, the module constants that hold the port's
+# own values, and the JAX package's definitions the port leaves out
+# (replace_marked_region and the fault catalog's markers serve the JAX
+# package's doc generator, and `re` only it).  Text may differ too:
+# docstrings, and string literals with a space in them (rule docs,
+# messages and the baseline header, which name the port's command and
+# files).
+SPLINT_COPIES = {
+    "analysis/core.py": ({"BASELINE_RELPATH", "RULES_BEGIN",
+                          "RULES_END"}, set()),
+    "analysis/registry.py": ({"PROTOCOL_RELPATH", "FAULT_SCAN_RELPATHS"},
+                             {"replace_marked_region", "re",
+                              "OPERATIONS_BEGIN", "OPERATIONS_END"}),
+    "analysis/registry_rules.py": ({"_METRICS_RELPATH"}, set()),
+    "analysis/runner.py": ({"SCAN_RELPATHS", "ENGINE_PREFIX"}, set()),
+}
+# the SPL2xx module each runner registers (the port's torch_rules in
+# place of the JAX package's jax_rules)
+SPLINT_RULES_IMPORT = ("from . import jax_rules as _jr",
+                       "from . import torch_rules as _tr")
+
+
+def _splint_code(text, constants, dropped):
+    """The module's AST without docstrings, prose, the port's constants'
+    values and the definitions in `dropped`, dumped."""
+    tree = ast.parse(text)
+    body = []
+    for node in tree.body:
+        names = {getattr(node, "name", None)} | {
+            t.id for t in getattr(node, "targets", [])
+            if isinstance(t, ast.Name)} | {
+            a.asname or a.name for a in getattr(node, "names", [])}
+        if names & dropped:
+            continue
+        if isinstance(node, ast.Assign) and names & constants:
+            node.value = ast.Constant("<the port's>")
+        body.append(node)
+    tree.body = body
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) \
+                and node.body and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant) \
+                and isinstance(node.body[0].value.value, str):
+            node.body[0].value.value = "<docstring>"
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and any(c.isspace() for c in node.value):
+            node.value = "<text>"
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", sorted(SPLINT_COPIES))
+def test_splint_copy_differs_only_in_constants(rel):
+    """The port's splint core, registry, registry rules and runner are
+    the JAX package's but for their paths (and their wording): the same
+    rules, the same suppression and baseline semantics, the same report.
+    tests/test_torch_splint.py runs both on the same inputs."""
+    constants, dropped = SPLINT_COPIES[rel]
+    port = (PORT / rel).read_text()
+    ref = (ROOT / "libsplinter_tpu" / rel).read_text().replace(
+        *SPLINT_RULES_IMPORT)
+    for name in constants:
+        assert re.search(rf"(?m)^{name} = ", port), name
+    assert _splint_code(port, constants, set()) == \
+        _splint_code(ref, constants, dropped)
+
+
+def _defs(rel):
+    tree = ast.parse(rel.read_text())
+    return {getattr(n, "name", None) or ast.unparse(n.targets[0]): n
+            for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.Assign))}
+
+
+def _loop_body(fn):
+    """The statements a rule runs for each node it walks."""
+    return next(n for n in ast.walk(fn) if isinstance(n, ast.For)
+                and ast.unparse(n.target) == "node").body
+
+
+def test_torch_rules_keep_the_jax_rules_shared_parts():
+    """torch_rules.py is the port's own module, but the parts of SPL201
+    and SPL204 that the JAX package's rules also have are theirs: the
+    drain-function set and its walkers, SPL201's np.asarray/np.array and
+    int/float forms with their exemptions (numpy roots without `jnp`),
+    and SPL204's `random` and `np.random` checks (the port's torch
+    draws come after them)."""
+    port = _defs(PORT / "analysis" / "torch_rules.py")
+    ref = _defs(ROOT / "libsplinter_tpu" / "analysis" / "jax_rules.py")
+    for name in ("DRAIN_FN_NAMES", "DRAIN_FN_PREFIXES", "_is_drain_fn",
+                 "_iter_drain_functions", "_calls_fault"):
+        assert ast.dump(port[name]) == ast.dump(ref[name]), name
+    assert _splint_code(ast.unparse(port["_dotted"]), set(), set()) == \
+        _splint_code(ast.unparse(ref["_dotted"]), set(), set())
+    assert ast.unparse(port["_NP_ROOTS"].value) == "{'np', 'numpy'}"
+    assert ast.unparse(ref["_NP_ROOTS"].value) == "{'np', 'numpy', 'jnp'}"
+    sync = [_loop_body(d["check_host_sync_in_drain"]) for d in (port, ref)]
+    # the skip of non-calls, the callee's name, then the port's two
+    # torch forms against the JAX package's two, then the shared two
+    assert [ast.dump(n) for n in sync[0][:2]] == \
+        [ast.dump(n) for n in sync[1][:2]]
+    assert len(sync[0]) == len(sync[1]) == 6
+    assert [ast.dump(n) for n in sync[0][4:]] == \
+        [ast.dump(n) for n in sync[1][4:]]
+    rng = [_loop_body(d["check_fault_path_nondeterminism"])
+           for d in (port, ref)]
+    torch_draw = rng[0][-1].orelse[0].orelse
+    assert "_torch_draw" in ast.unparse(torch_draw[0].test)
+    rng[0][-1].orelse[0].orelse = []
+    assert [ast.dump(n) for n in rng[0]] == [ast.dump(n) for n in rng[1]]
 
 
 def _search_lines(path):
